@@ -1,0 +1,97 @@
+"""The port stands alone: ``univs_tpu_torch`` and every submodule import
+with JAX blocked, no module of the package imports ``univs_tpu``,
+``jax`` or ``flax``, and the entry points refuse to run on the CPU unless
+the caller asks for it."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import univs_tpu_torch
+from univs_tpu_torch.config import tiny_test_config
+from univs_tpu_torch.inference.driver import EntityDriver
+from univs_tpu_torch.models import univs as univs_models
+from univs_tpu_torch.ops import kernels
+
+torch.set_num_threads(1)
+
+PKG = pathlib.Path(univs_tpu_torch.__file__).parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "univs_tpu")
+
+
+def test_package_imports_with_jax_blocked():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        import univs_tpu_torch
+        mods = [m.name for m in pkgutil.walk_packages(univs_tpu_torch.__path__, "univs_tpu_torch.")]
+        for m in mods:
+            importlib.import_module(m)
+        assert not any(k.split(".")[0] in {FORBIDDEN!r} and sys.modules[k] is not None
+                       for k in sys.modules)
+        print(len(mods))
+    """)
+    root = str(PKG.parent)
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=120, env=dict(os.environ, PYTHONPATH=root))
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")))
+def test_no_forbidden_imports(path):
+    tree = ast.parse((PKG / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, f"{path} imports {n}"
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_entry_points_refuse_cpu_without_request(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_test_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EntityDriver(cfg, num_classes=2, capacity=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        univs_models.build_pixel_decoder(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        univs_models.build_decoder(cfg, device="cuda")
+
+
+def test_cpu_tensors_take_the_plain_laws(monkeypatch):
+    """On CPU tensors the encoder runs the plain laws: no kernel is built
+    or loaded, and the launch counts stay at 0."""
+    cfg = tiny_test_config()
+    pd = univs_models.build_pixel_decoder(cfg, device="cpu")
+    rng = np.random.RandomState(0)
+    feats = {k: torch.as_tensor(rng.randn(1, 64 // s, 96 // s, c).astype(np.float32))
+             for k, s, c in (("res2", 4, 256), ("res3", 8, 512), ("res4", 16, 1024),
+                             ("res5", 32, 2048))}
+    def no_kernels(name):
+        raise AssertionError(f"kernel {name} requested for CPU tensors")
+
+    monkeypatch.setattr(kernels, "lib", no_kernels)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        mf, _, _, ms = pd(feats)
+    assert tuple(mf.shape) == (1, 16, 24, cfg.pixel_decoder.mask_dim)
+    assert bool(torch.isfinite(mf).all())
+    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}

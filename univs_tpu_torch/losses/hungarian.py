@@ -1,0 +1,73 @@
+"""Exact Hungarian assignment (Jonker-Volgenant shortest augmenting
+paths) — counterpart of ``univs_tpu/losses/hungarian.py``.
+
+The JAX package runs this algorithm on the TPU inside its jit.  Here
+the matrices are at most 60 x 25 (pool slots x candidates), so the port
+runs the same algorithm on a host copy of the cost matrix: one
+device->host copy per clip; the assignment returns on the input's
+device.  An on-device version is listed in ROADMAP.md.
+
+The arithmetic is float32, step for step as in the JAX version
+(potentials, slack, first-index argmin), so the assignment is the same,
+ties included.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+_INF = np.float32(1e12)
+
+
+def hungarian_numpy(cost: np.ndarray, row_valid: Optional[np.ndarray] = None) -> np.ndarray:
+    """[N, M] float cost (N <= M) -> col4row [N] int64 (-1 for invalid rows)."""
+    c = np.asarray(cost, np.float32)
+    N, M = c.shape
+    assert N <= M, "hungarian expects N (rows) <= M (cols)"
+    if row_valid is not None:
+        c = np.where(np.asarray(row_valid)[:, None], c, np.float32(0.0)).astype(np.float32)
+    u = np.zeros(N + 1, np.float32)
+    v = np.zeros(M + 1, np.float32)
+    p = np.zeros(M + 1, np.int64)  # p[j]: row (1-based) matched to column j
+    for i in range(N):
+        p[0] = i + 1
+        minv = np.full(M + 1, _INF, np.float32)
+        used = np.zeros(M + 1, bool)
+        way = np.zeros(M + 1, np.int64)
+        j0 = 0
+        while p[j0] != 0:
+            used[j0] = True
+            i0 = p[j0]
+            cur = c[i0 - 1] - u[i0] - v[1:]
+            unused = ~used[1:]
+            better = unused & (cur < minv[1:])
+            minv[1:] = np.where(better, cur, minv[1:])
+            way[1:] = np.where(better, j0, way[1:])
+            masked = np.where(unused, minv[1:], _INF)
+            jm = int(np.argmin(masked))
+            delta = masked[jm]
+            u[p[used]] += delta
+            v[used] -= delta
+            minv[1:] = np.where(unused, minv[1:] - delta, minv[1:])
+            j0 = jm + 1
+        while j0 != 0:
+            j1 = way[j0]
+            p[j0] = p[j1]
+            j0 = j1
+    col4row = np.zeros(N + 1, np.int64)
+    col4row[p[1:]] = np.arange(1, M + 1)
+    col4row = col4row[1:] - 1
+    if row_valid is not None:
+        col4row = np.where(np.asarray(row_valid), col4row, -1)
+    return col4row
+
+
+def hungarian(cost: torch.Tensor, row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Minimum-cost row -> column assignment: [N, M] (N <= M) ->
+    col4row [N] int64 on ``cost``'s device (-1 for invalid rows)."""
+    rv = None if row_valid is None else row_valid.detach().cpu().numpy()
+    out = hungarian_numpy(cost.detach().to(torch.float32).cpu().numpy(), rv)
+    return torch.as_tensor(out, device=cost.device)

@@ -1,0 +1,264 @@
+"""UniVS video transformer decoder (counterpart of
+``univs_tpu/models/decoder.py``), tasks 'detection' (learnable queries)
+and 'sot' (visual prompts through ProCA).
+
+Batch-major tokens ``[B*T, Q, C]``; the spatio-temporal self-attention
+runs on ``[B, Q*T, C]`` with a static block bias (q-major tokens); the
+masked cross-attention's allow-mask comes from the previous layer's mask
+logits computed at the attention resolution from PRE-DOWNSAMPLED mask
+features (bilinear resize is linear, so this equals resizing the
+full-resolution logits).  ProCA applies no kv mask: blank entries attend
+as zero-vector tokens, as in the reference.  Module names follow the
+flax tree so the weight bridge maps them one to one; the text-path
+modules exist for that mapping (the text path itself is not ported).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from univs_tpu_torch.models.transformer_layers import (
+    MLP,
+    NEG_INF,
+    CrossAttentionBlock,
+    FFNBlock,
+    SelfAttentionBlock,
+)
+from univs_tpu_torch.ops.position_encoding import SinePositionEncoding3D
+from univs_tpu_torch.structures import VisualPrompts
+
+
+def build_self_attn_bias(num_learnable: int, num_prompt: int, t: int, mask_type: str, task: str,
+                         device=None) -> Optional[torch.Tensor]:
+    """Static (Q*T, Q*T) additive bias [1, 1, QT, QT] for the
+    spatio-temporal self-attention (token = q*T + t'); semantics per
+    decoder_univs.py:824-848."""
+    if mask_type in ("none", "all"):
+        return None
+    Ql, Qp = num_learnable, num_prompt
+    n = (Ql + Qp) * t
+    disallow = np.ones((n, n), dtype=bool)
+    disallow[: Ql * t, : Ql * t] = False
+    if mask_type == "sep-blocked" or task == "grounding":
+        for k in range(Qp):
+            s = Ql * t + k * t
+            disallow[s: s + t, s: s + t] = False
+    elif mask_type == "sep":
+        disallow[Ql * t:, Ql * t:] = False
+    elif mask_type == "sep-l2p":
+        disallow[Ql * t:, :] = False
+    else:
+        raise ValueError(mask_type)
+    bias = np.where(disallow, NEG_INF, 0.0).astype(np.float32)
+    return torch.as_tensor(bias, device=device)[None, None]
+
+
+def _normalize(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp(min=1e-12)
+
+
+class UniVSDecoder(nn.Module):
+    def __init__(self, hidden_dim=256, num_queries=200, num_layers=9, num_heads=8, ffn_dim=2048,
+                 pre_norm=False, mask_dim=256, num_feature_levels=3, text_emb_dim=640,
+                 self_attn_mask_type="sep", num_max_frames=128):
+        super().__init__()
+        C = hidden_dim
+        self.hidden_dim = C
+        self.num_queries = num_queries
+        self.num_layers = num_layers
+        self.num_feature_levels = num_feature_levels
+        self.self_attn_mask_type = self_attn_mask_type
+        self.query_feat = nn.Parameter(torch.zeros(num_queries, C))
+        self.query_embed = nn.Parameter(torch.zeros(num_queries, C))
+        self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, C))
+        self.cls_temp = nn.Parameter(torch.full((1,), math.log(1 / 0.07)))
+        self.reid_temp = nn.Parameter(torch.full((1,), math.log(1 / 0.07)))
+        self.prompt_detection = nn.Parameter(torch.zeros(C))
+        self.prompt_sot = nn.Parameter(torch.zeros(C))
+        self.prompt_grounding = nn.Parameter(torch.zeros(C))
+        for i in range(num_layers):
+            setattr(self, f"cross_{i}", CrossAttentionBlock(C, num_heads, pre_norm))
+            setattr(self, f"self_{i}", SelfAttentionBlock(C, num_heads, pre_norm))
+            setattr(self, f"ffn_{i}", FFNBlock(C, ffn_dim, pre_norm))
+            setattr(self, f"proca_{i}", CrossAttentionBlock(C, num_heads, False))
+        self.decoder_norm = nn.LayerNorm(C, eps=1e-5)
+        self.mask_embed = MLP(C, C, mask_dim, 3)
+        self.vis2text_projection = nn.Linear(C, text_emb_dim)
+        # text path (weights mapped by the bridge; the path is not ported yet)
+        self.text_norm = nn.LayerNorm(text_emb_dim, eps=1e-5)
+        self.text2vis_projection = nn.Linear(text_emb_dim, C)
+        self.lang2vision = CrossAttentionBlock(C, num_heads, False)
+        self.pe3d = SinePositionEncoding3D(num_pos_feats=C // 2, mode="arbitrary",
+                                           num_max_frames=num_max_frames)
+
+    # ------------------------------------------------------------------
+
+    def _pe(self, t, h, w, frame_indices) -> torch.Tensor:
+        """[B, T, H, W, C] ArbitraryT PE per video (z from absolute frames)."""
+        return torch.stack([self.pe3d.grid(t, h, w, t_indices=fi) for fi in frame_indices])
+
+    def prompt_feature_grid(self, x_finest: torch.Tensor, frame_indices: torch.Tensor):
+        """1/8-level src tokens (+level embed) and their 3D PE as grids:
+        x_finest [B*T, H, W, C] -> (feats [B, T, H, W, C], pos [B, T, H, W, C])."""
+        b, t = frame_indices.shape
+        _, h, w, C = x_finest.shape
+        feats = x_finest + self.level_embed[self.num_feature_levels - 1].to(x_finest.dtype)
+        pos = self._pe(t, h, w, frame_indices)
+        return feats.reshape(b, t, h, w, C), pos.to(x_finest.dtype)
+
+    def _proca(self, i, output, query_pos, kv, kv_pe, b, t):
+        """Prompt cross-attention over each prompt's [self; L kv] set (no
+        kv mask — decoder_univs.py:456-496)."""
+        Ql = self.num_queries
+        Qp, L, C = kv.shape[1], kv.shape[2], output.shape[-1]
+        out_p, pos_p = output[:, Ql:], query_pos[:, Ql:]
+        layer = getattr(self, f"proca_{i}")
+        if kv.shape[3] == 1 and t > 1:
+            # frame-invariant kv: fold the T frames into the query axis; each
+            # frame's query sees only its own token as the "self" key
+            q = out_p.reshape(b, t, Qp, C).transpose(1, 2).reshape(b * Qp, t, C)
+            qp_ = pos_p.reshape(b, t, Qp, C).transpose(1, 2).reshape(b * Qp, t, C)
+            kv_sh = kv[:, :, :, 0].reshape(b * Qp, L, C)
+            keys = torch.cat([q, kv_sh], dim=1)
+            if kv_pe is not None:
+                key_pos = torch.cat([qp_, kv_pe[:, :, :, 0].reshape(b * Qp, L, C)], dim=1)
+                q_pos = qp_
+            else:
+                key_pos, q_pos = None, None
+            eye = torch.eye(t, dtype=torch.bool, device=output.device)
+            diag = torch.where(eye, 0.0, NEG_INF).to(torch.float32)
+            bias = torch.cat([diag, torch.zeros((t, L), device=output.device)], dim=1)[None, None]
+            new_p = layer(q, keys, query_pos=q_pos, pos=key_pos, bias=bias)
+            new_p = new_p.reshape(b, Qp, t, C).transpose(1, 2).reshape(b * t, Qp, C)
+            return torch.cat([output[:, :Ql], new_p], dim=1)
+
+        kv_bt = kv.permute(0, 3, 1, 2, 4).reshape(b * t, Qp, L, C)
+        keys = torch.cat([out_p[:, :, None], kv_bt], dim=2).reshape(b * t * Qp, 1 + L, C)
+        if kv_pe is not None:
+            pe_bt = kv_pe.permute(0, 3, 1, 2, 4).reshape(b * t, Qp, L, C)
+            key_pos = torch.cat([pos_p[:, :, None], pe_bt], dim=2).reshape(b * t * Qp, 1 + L, C)
+            q_pos = pos_p.reshape(b * t * Qp, 1, C)
+        else:
+            key_pos, q_pos = None, None
+        new_p = layer(out_p.reshape(b * t * Qp, 1, C), keys, query_pos=q_pos, pos=key_pos)
+        return torch.cat([output[:, :Ql], new_p.reshape(b * t, Qp, C)], dim=1)
+
+    def _prediction_heads(self, output, mask_features, mask_features_small, cls_emb, b, t,
+                          need_outputs):
+        """Per-layer heads + the next layer's boolean attention allow-mask
+        [B*T, 1, Q, h*w] (decoder_univs.py:498-567)."""
+        Q = output.shape[1]
+        dec = self.decoder_norm(output)
+        membed = self.mask_embed(dec).reshape(b, t, Q, -1)
+        logits = masks = embds_raw = None
+        if need_outputs:
+            q = _normalize(self.vis2text_projection(dec))
+            k = _normalize(cls_emb)
+            logits = q @ k.to(q.dtype).T
+            logits = logits.reshape(b, t, Q, -1).mean(dim=1) * torch.exp(self.cls_temp)
+            H, W, Cm = mask_features.shape[2:]
+            masks = membed @ mask_features.reshape(b, t, H * W, Cm).transpose(-1, -2)
+            masks = masks.reshape(b, t, Q, H, W).transpose(1, 2)  # [B, Q, T, H, W]
+            embds_raw = dec.reshape(b, t, Q, -1).transpose(1, 2)
+        h, w, Cm = mask_features_small.shape[2:]
+        m_small = membed @ mask_features_small.reshape(b, t, h * w, Cm).transpose(-1, -2)
+        allowed = torch.sigmoid(m_small.to(torch.float32)) >= 0.5  # [B, T, Q, hw]
+        allowed = allowed | ~allowed.any(dim=-1, keepdim=True)
+        bias = allowed.reshape(b * t, 1, Q, h * w)
+        return logits, masks, embds_raw, bias
+
+    def forward(self, x_levels: Sequence[torch.Tensor], mask_features: torch.Tensor,
+                frame_indices: torch.Tensor, task: str = "detection",
+                visual_prompts: Optional[VisualPrompts] = None,
+                cls_emb: Optional[torch.Tensor] = None) -> Dict:
+        if task not in ("detection", "sot"):
+            raise NotImplementedError(f"decoder task {task!r} is not ported yet")
+        assert len(x_levels) == self.num_feature_levels
+        C = self.hidden_dim
+        dtype = self.query_feat.dtype
+        bt = x_levels[0].shape[0]
+        b, t = frame_indices.shape
+        assert b * t == bt, (b, t, bt)
+        hm, wm = mask_features.shape[1:3]
+        mask_features = mask_features.reshape(b, t, hm, wm, -1)
+
+        srcs, poss, sizes = [], [], []
+        for i, x in enumerate(x_levels):
+            _, h, w, cin = x.shape
+            assert cin == C, "input_proj is identity (in_channels == hidden_dim)"
+            sizes.append((h, w))
+            poss.append(self._pe(t, h, w, frame_indices).reshape(bt, h * w, C).to(dtype))
+            srcs.append(x.reshape(bt, h * w, C) + self.level_embed[i][None, None])
+
+        Ql = self.num_queries
+        output = self.query_feat[None].expand(bt, Ql, C)
+        query_pos = self.query_embed[None].expand(bt, Ql, C)
+
+        prompts = visual_prompts if task == "sot" else None
+        Qp = 0
+        kv = kv_pe = None
+        if prompts is not None:
+            # the memory pool holds float32; the decoder runs in its dtype
+            Qp = prompts.num_prompts
+            kv = prompts.kv.to(dtype)
+            kv_pe = None if prompts.kv_pe is None else prompts.kv_pe.to(dtype)
+            pq = (prompts.queries.to(dtype) + self.prompt_sot).transpose(1, 2).reshape(bt, Qp, C)
+            pqp = prompts.query_pos.to(dtype).transpose(1, 2).reshape(bt, Qp, C)
+            output = torch.cat([output, pq], dim=1)
+            query_pos = torch.cat([query_pos, pqp], dim=1)
+            output = self._proca(0, output, query_pos, kv, kv_pe, b, t)
+            query_pos = torch.cat([query_pos[:, :Ql], output[:, Ql:]], dim=1)
+
+        # pre-downsampled mask features per attention level
+        Cm = mask_features.shape[-1]
+        mf = mask_features.to(torch.float32).reshape(bt, hm, wm, Cm).permute(0, 3, 1, 2)
+        mf_small = [
+            F.interpolate(mf, size=(h, w), mode="bilinear", align_corners=False)
+            .permute(0, 2, 3, 1).reshape(b, t, h, w, Cm).to(mask_features.dtype)
+            for (h, w) in sizes
+        ]
+
+        def heads(out_tokens, mfs, need):
+            return self._prediction_heads(out_tokens, mask_features, mfs, cls_emb, b, t, need)
+
+        logits, masks, embds_raw, attn_bias = heads(output, mf_small[0], False)
+
+        self_bias = build_self_attn_bias(Ql, Qp, t, self.self_attn_mask_type, task,
+                                         device=output.device)
+        if prompts is not None:
+            tok_valid = torch.cat([torch.ones((b, Ql), dtype=torch.bool, device=output.device),
+                                   prompts.valid.to(torch.bool)], dim=1)
+            tok_valid = tok_valid.repeat_interleave(t, dim=1)
+            col_bias = torch.where(tok_valid, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
+            n_tok = tok_valid.shape[1]
+            eye = torch.eye(n_tok, dtype=torch.bool, device=output.device)[None, None]
+            base = 0.0 if self_bias is None else self_bias
+            self_bias = torch.where(eye, 0.0, base + col_bias)
+
+        for i in range(self.num_layers):
+            if prompts is not None and i > 0:
+                output = self._proca(i, output, query_pos, kv, kv_pe, b, t)
+            li = i % self.num_feature_levels
+            output = getattr(self, f"cross_{i}")(output, srcs[li], query_pos=query_pos,
+                                                 pos=poss[li], bias=attn_bias)
+            Qtot = output.shape[1]
+            o = output.reshape(b, t, Qtot, C).transpose(1, 2).reshape(b, Qtot * t, C)
+            qp_ = query_pos.reshape(b, t, Qtot, C).transpose(1, 2).reshape(b, Qtot * t, C)
+            o = getattr(self, f"self_{i}")(o, pos=qp_, bias=self_bias)
+            output = o.reshape(b, Qtot, t, C).transpose(1, 2).reshape(bt, Qtot, C)
+            output = getattr(self, f"ffn_{i}")(output)
+            final = i == self.num_layers - 1
+            logits, masks, embds_raw, attn_bias = heads(
+                output, mf_small[(i + 1) % self.num_feature_levels], final)
+
+        out = {"pred_logits": logits, "pred_masks": masks, "pred_embds": embds_raw,
+               "aux_outputs": []}
+        if prompts is not None:
+            out["prompt_valid"] = prompts.valid
+        return out

@@ -1,0 +1,98 @@
+"""UniVS builders (counterpart of ``univs_tpu/models/univs.py``).
+
+``UniVSModel`` holds the three parameterized parts under the flax tree's
+top-level names (``backbone``, ``pixel_decoder``, ``decoder``), so a
+JAX param tree converts onto it with ``utils.weights`` and the port's
+own seeded init fills it without JAX.  The model builders are entry
+points: they place the model on the card unless ``device="cpu"`` is
+passed, and raise when no card is present.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from univs_tpu_torch.config import UniVSConfig
+from univs_tpu_torch.models.backbones.resnet import build_backbone as _build_resnet
+from univs_tpu_torch.models.decoder import UniVSDecoder
+from univs_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
+from univs_tpu_torch.utils.device import resolve_device
+
+_RESNET_CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
+
+
+def compute_dtype_of(cfg: UniVSConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _place(module: nn.Module, cfg: UniVSConfig, device) -> nn.Module:
+    dev = resolve_device(device)
+    return module.to(device=dev, dtype=compute_dtype_of(cfg)).eval().requires_grad_(False)
+
+
+def _pixel_decoder(cfg: UniVSConfig) -> MSDeformAttnPixelDecoder:
+    c = cfg.pixel_decoder
+    return MSDeformAttnPixelDecoder(
+        _RESNET_CHANNELS, hidden_dim=c.hidden_dim, mask_dim=c.mask_dim, num_layers=c.num_layers,
+        num_heads=c.num_heads, num_points=c.num_points, ffn_dim=c.ffn_dim,
+        transformer_in_features=c.transformer_in_features,
+    )
+
+
+def _decoder(cfg: UniVSConfig) -> UniVSDecoder:
+    c = cfg.decoder
+    return UniVSDecoder(
+        hidden_dim=c.hidden_dim, num_queries=c.num_queries, num_layers=c.num_layers,
+        num_heads=c.num_heads, ffn_dim=c.ffn_dim, pre_norm=c.pre_norm, mask_dim=c.mask_dim,
+        text_emb_dim=c.clip_cls_emb_dim, self_attn_mask_type=c.self_attn_mask_type,
+        num_max_frames=c.num_max_frames,
+    )
+
+
+def build_backbone(cfg: UniVSConfig, device=None) -> nn.Module:
+    return _place(_build_resnet(cfg.backbone), cfg, device)
+
+
+def build_pixel_decoder(cfg: UniVSConfig, device=None) -> MSDeformAttnPixelDecoder:
+    return _place(_pixel_decoder(cfg), cfg, device)
+
+
+def build_decoder(cfg: UniVSConfig, device=None) -> UniVSDecoder:
+    return _place(_decoder(cfg), cfg, device)
+
+
+class UniVSModel(nn.Module):
+    """backbone -> pixel decoder -> decoder, under the flax tree's names
+    (float32 on the CPU as constructed; ``build_model`` places it)."""
+
+    def __init__(self, cfg: UniVSConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = _build_resnet(cfg.backbone)
+        self.pixel_decoder = _pixel_decoder(cfg)
+        self.decoder = _decoder(cfg)
+
+    def normalize(self, images: torch.Tensor) -> torch.Tensor:
+        """[..., H, W, 3] raw RGB (0-255) -> normalized compute dtype."""
+        mean = torch.tensor(self.cfg.pixel_mean, dtype=torch.float32, device=images.device)
+        std = torch.tensor(self.cfg.pixel_std, dtype=torch.float32, device=images.device)
+        return ((images.to(torch.float32) - mean) / std).to(compute_dtype_of(self.cfg))
+
+
+def build_model(cfg: UniVSConfig, params: Optional[dict] = None, seed: int = 0,
+                device=None) -> UniVSModel:
+    """The full model on ``device`` (the card unless "cpu"): weights from
+    ``params`` (a state_dict of this model, e.g. from
+    ``utils.weights.state_dict_from_flax``) or, when None, the port's
+    seeded init."""
+    from univs_tpu_torch.utils import weights
+
+    model = UniVSModel(cfg)
+    if params is None:
+        weights.init_params(model, seed)
+    else:
+        weights.load_state_dict_strict(model, params)
+    return _place(model, cfg, device)

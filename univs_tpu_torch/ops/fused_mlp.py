@@ -1,0 +1,75 @@
+"""Fused residual + LayerNorm + FFN + LayerNorm of the deformable
+encoder layers (counterpart of ``univs_tpu/ops/fused_mlp.py``):
+
+    u   = LN1(src + attn_out)
+    out = LN2(u + W2 relu(W1 u + b1) + b2)
+
+LayerNorm statistics in float32; the products see u and the hidden
+activation in the layer dtype and accumulate in float32 (the TPU
+kernel's law, ``fused_mlp.py:27-43``).  Weights are in the JAX layout
+``[in, out]``.  ``fused_ffn_ln`` dispatches on the device: the CPU takes
+``fused_ffn_ln_plain``, a CUDA tensor launches kernel C
+(``csrc/fused_ffn_ln.cu``) or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from univs_tpu_torch.ops import kernels
+
+
+def _ln(z: torch.Tensor, g: torch.Tensor, c: torch.Tensor, eps: float) -> torch.Tensor:
+    mu = z.mean(-1, keepdim=True)
+    zc = z - mu
+    var = (zc * zc).mean(-1, keepdim=True)
+    return zc * torch.rsqrt(var + eps) * g.to(torch.float32) + c.to(torch.float32)
+
+
+def fused_ffn_ln_plain(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps: float = 1e-5):
+    """Plain PyTorch version of kernel C: src/attn_out [N, S, C],
+    w1 [C, F], w2 [F, C] -> [N, S, C] in src's dtype."""
+    dt = src.dtype
+    f32 = torch.float32
+    u = _ln(src.to(f32) + attn_out.to(f32), g1, c1, eps)
+    y1 = torch.relu(u.to(dt).to(f32) @ w1.to(f32) + b1.to(f32))
+    y2 = y1.to(dt).to(f32) @ w2.to(f32)
+    return _ln(u + y2 + b2.to(f32), g2, c2, eps).to(dt)
+
+
+def fused_ffn_ln_cuda(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps: float = 1e-5):
+    """Kernel C on the card.  src, attn_out, w1, w2 share one dtype
+    (float32 or bfloat16) and src / attn_out are contiguous.  The kernel
+    reads the weights in nn.Linear's ``[out, in]`` layout, so ``w1.t()``
+    / ``w2.t()`` are made contiguous here (free when the caller passes
+    ``linear.weight.t()``); the vectors are cast to float32 here."""
+    N, S, C = src.shape
+    F = w1.shape[1]
+    if tuple(attn_out.shape) != (N, S, C) or tuple(w1.shape) != (C, F) or tuple(w2.shape) != (F, C):
+        raise ValueError(f"fused_ffn_ln: shapes src {tuple(src.shape)}, attn "
+                         f"{tuple(attn_out.shape)}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    if not (attn_out.dtype == w1.dtype == w2.dtype == src.dtype):
+        raise TypeError("fused_ffn_ln: src, attn_out, w1 and w2 must share one dtype")
+    vec = [v.to(torch.float32).contiguous() for v in (g1, c1, b1, b2, g2, c2)]
+    if any(v.numel() != n for v, n in zip(vec, (C, C, F, C, C, C))):
+        raise ValueError("fused_ffn_ln: LayerNorm / bias vectors of the wrong length")
+    w1_k, w2_k = w1.t().contiguous(), w2.t().contiguous()  # [F, C], [C, F]
+    kernels.require_cuda("fused_ffn_ln", src, attn_out, w1_k, w2_k, *vec)
+    code = kernels.dtype_code(src)
+    out = torch.empty_like(src)
+    g1_, c1_, b1_, b2_, g2_, c2_ = vec
+    fn = kernels.lib("fused_ffn_ln").fused_ffn_ln_launch
+    err = fn(code, src.data_ptr(), attn_out.data_ptr(), g1_.data_ptr(), c1_.data_ptr(),
+             w1_k.data_ptr(), b1_.data_ptr(), w2_k.data_ptr(), b2_.data_ptr(), g2_.data_ptr(),
+             c2_.data_ptr(), out.data_ptr(), N * S, C, F, float(eps),
+             kernels.stream_arg(src.device))
+    kernels.check("fused_ffn_ln", err)
+    kernels.LAUNCHES["fused_ffn_ln"] += 1
+    return out
+
+
+def fused_ffn_ln(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps: float = 1e-5):
+    """Plain law on the CPU, kernel C on CUDA."""
+    if src.is_cuda:
+        return fused_ffn_ln_cuda(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps)
+    return fused_ffn_ln_plain(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps)

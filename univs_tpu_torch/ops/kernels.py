@@ -1,0 +1,155 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, at first use, into
+``build/torch_kernels/`` at the repository root (listed in
+``.gitignore``), and loaded with ctypes.  All sources build in parallel
+(one ``nvcc`` each, all started together).  A build or load failure
+raises; nothing falls back.
+
+Every wrapper adds one to ``LAUNCHES[name]`` where it launches its
+kernel and nowhere else, so a run can show that the main path went
+through the kernels (``reset_launch_counts`` / ``launch_counts``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional
+
+import torch
+
+KERNELS = ("msda_sample", "msda_rows", "fused_ffn_ln")
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # dtype, value, loc, out, N, S, Lq, M, D, P, L, shapes*, stream
+    "msda_sample": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # dtype, q, wo_t, bo, wa_t, ba, loc, N, Lq, C, M, P, L, shapes*, stream
+    "msda_rows": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # dtype, x, a, g1, c1, w1_t, b1, w2_t, b2, g2, c2, out, ntok, C, F, eps, stream
+    "fused_ffn_ln": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     ctypes.c_float, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not os.path.exists(lib):
+        return True
+    t = os.path.getmtime(lib)
+    srcs = [os.path.join(CSRC, f"{name}.cu"), os.path.join(CSRC, "common.cuh")]
+    return any(os.path.getmtime(s) > t for s in srcs)
+
+
+def build(names=KERNELS) -> Dict[str, str]:
+    """Compile the named kernels that are missing or stale, all nvcc
+    processes in parallel; raises with the compiler output on failure.
+    Returns {name: compiler output} (``-Xptxas -v`` register/spill
+    report) for what was built."""
+    todo = [n for n in names if _stale(n)]
+    if not todo:
+        return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC,
+               "-o", _lib_path(n) + ".tmp", os.path.join(CSRC, f"{n}.cu")]
+        procs[n] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+    out, failed = {}, []
+    for n, p in procs.items():
+        out[n], _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(n)
+        else:
+            os.replace(_lib_path(n) + ".tmp", _lib_path(n))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
+                           "\n".join(out[n] for n in failed))
+    return out
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built on first use)."""
+    with _lock:
+        if name not in _libs:
+            build(KERNELS)
+            handle = ctypes.CDLL(_lib_path(name))
+            fn = getattr(handle, f"{name}_launch")
+            fn.argtypes = _SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            _libs[name] = handle
+        return _libs[name]
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype == torch.float32:
+        return 0
+    if t.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+
+
+def shapes_arg(spatial_shapes) -> ctypes.Array:
+    flat = [int(v) for hw in spatial_shapes for v in hw]
+    return (ctypes.c_int * max(len(flat), 1))(*flat)
+
+
+def stream_arg(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def require_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    dev = None
+    for t in tensors:
+        if t is None:
+            continue
+        if not t.is_cuda:
+            raise ValueError(f"{name}: all tensors must be on one CUDA device")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        dev = t.device
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
