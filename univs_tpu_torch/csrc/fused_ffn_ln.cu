@@ -352,7 +352,6 @@ extern "C" int fused_ffn_ln_launch(int dtype, const void* x, const void* a, cons
                                    float eps, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (C % 4 != 0 || F % 4 != 0 || ntok < 0) return (int)cudaErrorInvalidValue;
-  if (ntok == 0) return (int)cudaSuccess;
   if (dtype == 1 && C == univs::kMmaC && F % univs::kMmaNCH == 0)
     return univs::launch_mma(x, a, g1, c1, w1, b1, w2, b2, g2, c2, out, ntok, F, eps, s);
   if (dtype == 0)
