@@ -10,22 +10,38 @@ non-zero):
   kernels — each kernel against its plain PyTorch version on the card, at
             the shapes the main path gives it (30 frames at 640x960,
             bf16 and float32) and at a tiny shape with D=8; times, bound
-            and errors per kernel;
-  path    — the main path: ``EntityDriver.run_vis`` for UniVS-R50 VIS at
-            full width (default UniVSConfig, bf16, 640x960, T=5, stride 1,
-            60 entity slots) on a seeded uint8 video of 30 frames with
-            seeded random weights; launch counts per kernel must equal
-            6 x (window encodes); a profile of one more run (device time
-            by kernel; the idle share over the wall time of the unprofiled
-            runs, and over the profiled run's own wall time, which the
-            profiler lengthens); and the whole path against a reference
-            on a small input: the tiny config's ``run_vis`` in float32 on
-            the card (through the kernels) and on the CPU (plain laws).
+            and errors per kernel; kernel D in both its modes (int8 slab,
+            value dtype), and the whole ``ms_deform_attn`` op with
+            ``impl='tent-int8'`` (quantisation included) beside
+            ``impl='tent'`` (kernel A), each against the float32 law;
+  paths   — each path driven with the launch counts set to 0 just before
+            and read just after, every kernel's count equal to the path's
+            expectation:
+            * the MSDA op's tent entry points at the encoder's shape
+              (``impl='tent-int8'`` and ``level_impl='base'`` -> kernel D,
+              ``impl='tent'`` -> kernel A);
+            * ``EntityDriver.run_vis`` for UniVS-R50 VIS at full width
+              (default UniVSConfig, bf16, 640x960, T=5, stride 1, 60 entity
+              slots, K=40) on a seeded uint8 video of 30 frames with seeded
+              random weights, A/B/C at 6 x (window encodes); the first 10
+              frames again with the class and consistency gates open; a
+              profile of one more run (device time by kernel; the idle share
+              over the wall time of the unprofiled runs, and over the
+              profiled run's own wall time, which the profiler lengthens);
+            * ``run_vss`` (VSPW, K=124) at the same size, A/B/C at 6 x
+              ceil(V / T) clip encodes;
+            * ``run_vps`` (VIPSeg, K=124, its 58 thing classes, 60 slots),
+              A/B/C at 6 x (window encodes), device and host-stitching time
+              apart, and the first 10 frames with the gates open when the
+              random weights admit no entity at the default ones;
+  tiny    — each driver path against a reference on a small input: the
+            tiny config's ``run_vis`` / ``run_vss`` / ``run_vps`` in float32
+            on the card (through the kernels) and on the CPU (plain laws).
 
-Prints one JSON line per kernel check, the ``kernels`` summary line and
-the card line, and last ``{"ok": true, "device": {...}}``.  Exits with a
-non-zero code, printing no result, when no CUDA device is present or the
-package cannot be imported.
+Prints one JSON line per check, the ``kernels`` summary line and the card
+line, and last ``{"ok": true, "device": {...}}``.  Exits with a non-zero
+code, printing no result, when no CUDA device is present or the package
+cannot be imported.
 """
 
 from __future__ import annotations
@@ -49,15 +65,27 @@ TINY_SHAPES = ((2, 3), (4, 6), (8, 12))
 TINY = dict(C=32, M=4, P=2, F=64)
 MAIN_PATH_FRAMES = 30
 
+FULL_HW = (640, 960)
+VSPW_CLASSES = VIPSEG_CLASSES = 124
+# VIPSeg's thing classes, 1-based, 58 of 124 (univs_tpu/data/datasets.py:43-49)
+VIPSEG_THING_IDS = (
+    3, 5, 9, 11, 42, 44, 45, 47, 48, 49, 50, 51, 52, 53, 55, 56, 57,
+    61, 62, 63, 64, 65, 66, 73, 75, 77, 78, 79, 80, 83, 84, 85, 86,
+    87, 88, 89, 90, 91, 92, 93, 96, 97, 98, 100, 101, 102, 103, 107,
+    108, 109, 110, 115, 116, 117, 118, 119, 123, 124,
+)
+
 REPLACES = {
     "msda_rows": "univs_tpu/ops/msda_rows.py:39",
     "msda_sample": "univs_tpu/ops/deformable_attention.py:411 and :490",
     "fused_ffn_ln": "univs_tpu/ops/fused_mlp.py:27",
+    "msda_tent_base": "univs_tpu/ops/deformable_attention.py:276",
 }
 SOURCES = {
     "msda_rows": "univs_tpu_torch/csrc/msda_rows.cu",
     "msda_sample": "univs_tpu_torch/csrc/msda_sample.cu",
     "fused_ffn_ln": "univs_tpu_torch/csrc/fused_ffn_ln.cu",
+    "msda_tent_base": "univs_tpu_torch/csrc/msda_tent_base.cu",
 }
 
 
@@ -136,9 +164,24 @@ def nbytes(*ts) -> int:
     return int(sum(t.numel() * t.element_size() for t in ts))
 
 
+# tolerances, relative to the reference's largest magnitude:
+#  - rows: float32 results of products of identical inputs, only the
+#    summation order differs -> 1e-4 in both dtypes, the x / y lanes
+#    (pixel coordinates) and the weight lanes each against their own
+#    magnitude;
+#  - sample, tent_base: float32 accumulation of identical products; a
+#    bf16 output rounds once -> 1e-4 (f32), 1e-2 (bf16: ~2 ulp);
+#  - ffn: the bf16 hidden activation and output round once each -> 1e-4
+#    (f32), 2e-2 (bf16: ~4 ulp of the largest output).
+TOL = {"msda_rows": (1e-4, 1e-4), "msda_sample": (1e-4, 1e-2), "fused_ffn_ln": (1e-4, 2e-2),
+       "msda_tent_base": (1e-4, 1e-2)}
+
+
 def kernel_checks(results: dict) -> bool:
     """Every kernel against its plain version; fills ``results`` with the
-    main-path-shape (bf16) numbers.  Returns True when all agree."""
+    main-path-shape (bf16) numbers (kernel D: the int8 slab under its
+    name, the value-dtype mode under ``msda_tent_base/dtype``) and the
+    ``ms_deform_attn`` op timings.  Returns True when all agree."""
     import torch
 
     from univs_tpu_torch.ops import deformable_attention as da
@@ -153,39 +196,38 @@ def kernel_checks(results: dict) -> bool:
     ]
     for case, shapes, geo, n, dtype in cases:
         x = make_inputs(shapes, geo, n, dtype, seed=1234)
-        M, P, L = x["M"], x["P"], x["L"]
+        M, P = x["M"], x["P"]
         is_bf16 = dtype == torch.bfloat16
         timed = case == "main" and is_bf16
         ff = x["ffn"]
         ffn_args = (ff["g1"], ff["c1"], ff["w1"], ff["b1"], ff["w2"], ff["b2"], ff["g2"], ff["c2"])
-
-        # tolerances, relative to the reference's largest magnitude:
-        #  - rows: float32 results of products of identical inputs, only
-        #    the summation order differs -> 1e-4 in both dtypes, the x / y
-        #    lanes (pixel coordinates) and the weight lanes each against
-        #    their own magnitude;
-        #  - sample: float32 accumulation of identical products; the bf16
-        #    output rounds once -> 1e-4 (f32), 1e-2 (bf16: ~2 ulp);
-        #  - ffn: the bf16 hidden activation and output round once each
-        #    -> 1e-4 (f32), 2e-2 (bf16: ~4 ulp of the largest output).
-        tol = {"msda_rows": 1e-4, "msda_sample": 1e-2 if is_bf16 else 1e-4,
-               "fused_ffn_ln": 2e-2 if is_bf16 else 1e-4}
+        loc = msda_rows.msda_rows_plain(x["q"], x["wo"], x["bo"], x["wa"], x["ba"], shapes, M, P)
+        q8, scale = da.quantize_int8_slab(x["value"], shapes)
+        deq = scale * torch.tensor(da._DEQUANT, dtype=torch.float32, device=scale.device)
+        # name -> (kernel call, plain call, the inputs it reads)
         calls = {
             "msda_rows": (
                 lambda: msda_rows.msda_rows_cuda(x["q"], x["wo"], x["bo"], x["wa"], x["ba"], shapes, M, P),
                 lambda: msda_rows.msda_rows_plain(x["q"], x["wo"], x["bo"], x["wa"], x["ba"], shapes, M, P),
-            ),
+                (x["q"], x["wo"], x["bo"], x["wa"], x["ba"])),
+            "msda_sample": (
+                lambda: da.msda_sample_cuda(x["value"], shapes, loc),
+                lambda: da.msda_sample_plain(x["value"], shapes, loc),
+                (x["value"], loc)),
+            "fused_ffn_ln": (
+                lambda: fused_mlp.fused_ffn_ln_cuda(x["src"], x["attn"], *ffn_args),
+                lambda: fused_mlp.fused_ffn_ln_plain(x["src"], x["attn"], *ffn_args),
+                (x["src"], x["attn"], *ff.values())),
+            "msda_tent_base": (
+                lambda: da.msda_tent_base_cuda(q8, shapes, loc, deq, dtype),
+                lambda: da.msda_tent_base_plain(q8, shapes, loc, deq, dtype),
+                (q8, deq, loc)),
+            "msda_tent_base/dtype": (
+                lambda: da.msda_tent_base_cuda(x["value"], shapes, loc),
+                lambda: da.msda_tent_base_plain(x["value"], shapes, loc),
+                (x["value"], loc)),
         }
-        loc = msda_rows.msda_rows_plain(x["q"], x["wo"], x["bo"], x["wa"], x["ba"], shapes, M, P)
-        calls["msda_sample"] = (
-            lambda: da.msda_sample_cuda(x["value"], shapes, loc),
-            lambda: da.msda_sample_plain(x["value"], shapes, loc),
-        )
-        calls["fused_ffn_ln"] = (
-            lambda: fused_mlp.fused_ffn_ln_cuda(x["src"], x["attn"], *ffn_args),
-            lambda: fused_mlp.fused_ffn_ln_plain(x["src"], x["attn"], *ffn_args),
-        )
-        for name, (kern, plain) in calls.items():
+        for name, (kern, plain, inputs) in calls.items():
             got = kern()
             torch.cuda.synchronize()
             want = plain()
@@ -195,43 +237,81 @@ def kernel_checks(results: dict) -> bool:
             errs = [float((g.float() - w.float()).abs().max()) for g, w in parts]
             scales = [float(w.float().abs().max()) for _, w in parts]
             finite = bool(torch.isfinite(got.float()).all())
-            passed = finite and all(e <= tol[name] * max(s, 1e-6) for e, s in zip(errs, scales))
+            tol = TOL[name.split("/")[0]][int(is_bf16)]
+            passed = finite and all(e <= tol * max(s, 1e-6) for e, s in zip(errs, scales))
             ok &= passed
-            err = max(errs)
             rec = {"check": name, "case": case, "dtype": str(dtype).replace("torch.", ""),
-                   "frames": n, "max_abs_err": err, "ref_max_abs": max(scales),
-                   "tol_rel": tol[name], "pass": passed}
+                   "frames": n, "max_abs_err": max(errs), "ref_max_abs": max(scales),
+                   "tol_rel": tol, "pass": passed}
             if name == "msda_rows":
                 rec.update(xy_max_abs_err=errs[0], xy_ref_max_abs=scales[0],
                            w_max_abs_err=errs[1], w_ref_max_abs=scales[1])
             if timed:
                 rec["kernel_ms"] = time_cuda(kern, iters=10)
                 rec["plain_ms"] = time_cuda(plain, iters=3, warmup=1)
-                results[name] = dict(rec, **bound_of(name, x, shapes, loc, got))
+                results[name] = dict(rec, **bound_of(name.split("/")[0], x, inputs, got))
             emit(rec)
             del got, want
-        del x, loc
+        if timed:
+            ok &= op_timing(x["value"], shapes, loc, results)
+        del x, loc, q8, deq
         torch.cuda.empty_cache()
     return ok
 
 
-def bound_of(name, x, shapes, loc, out):
+def rows_to_locations(shapes, loc):
+    """Kernel rows -> the JAX API's (sampling_locations in [0, 1],
+    attention_weights)."""
+    import torch
+
+    size = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=loc.device)
+    return (loc[..., :2] + 0.5) / size[:, None, :], loc[..., 2]
+
+
+def op_timing(value, shapes, loc, results) -> bool:
+    """The whole ``ms_deform_attn`` op at the main path's shape (bf16):
+    ``impl='tent-int8'`` (quantisation + kernel D) beside ``impl='tent'``
+    (kernel A), each output's error against the float32 law on the same
+    locations: the card's reading of the int8 trade."""
+    import torch
+
+    from univs_tpu_torch.ops import deformable_attention as da
+
+    sl, aw = rows_to_locations(shapes, loc)
+    exact = da.msda_sample_plain(value.float(), shapes, da.locations_to_rows(shapes, sl, aw))
+    scale = float(exact.abs().max())
+    rec = {"op": "ms_deform_attn", "dtype": str(value.dtype).replace("torch.", ""),
+           "frames": value.shape[0], "f32_law_max_abs": scale}
+    for impl in ("tent-int8", "tent"):
+        fn = lambda impl=impl: da.ms_deform_attn(value, shapes, sl, aw, impl=impl)  # noqa: E731
+        out = fn()
+        rec[f"{impl}_max_abs_err_vs_f32_law"] = float((out.float() - exact).abs().max())
+        rec[f"{impl}_mean_abs_err_vs_f32_law"] = float((out.float() - exact).abs().mean())
+        rec[f"{impl}_ms"] = time_cuda(fn, iters=10)
+    # int8: ~|v|_max / 127 per sample (tests/test_ops.py:108's bound);
+    # tent: one bf16 rounding of the output
+    passed = (rec["tent-int8_max_abs_err_vs_f32_law"] <= 0.05 * scale
+              and rec["tent_max_abs_err_vs_f32_law"] <= 1e-2 * scale)
+    rec["pass"] = passed
+    results["op"] = rec
+    emit(rec)
+    return passed
+
+
+def bound_of(name, x, inputs, out):
     """Least time the card could take for the same work: max(bytes /
     HBM rate, operations / peak rate of their type), each input read once
     and each output written once."""
     N, Lq, C, M, P, L, D, F = (x["q"].shape[0], x["Lq"], x["C"], x["M"], x["P"], x["L"],
                                x["D"], x["F"])
+    byts = nbytes(*inputs, out)
     if name == "msda_rows":
-        byts = nbytes(x["q"], x["wo"], x["bo"], x["wa"], x["ba"], out)
         ops = 2.0 * N * Lq * C * (3 * M * L * P)
         rate = BF16_TENSOR_FLOPS
-    elif name == "msda_sample":
-        byts = nbytes(x["value"], loc, out)
-        ops = 2.0 * N * Lq * M * L * P * 4 * D  # 4 corner FMAs per channel
+    elif name in ("msda_sample", "msda_tent_base"):
+        ops = 2.0 * N * Lq * M * L * P * 4 * D  # 4 corner products and sums per channel
         rate = F32_FLOPS
     else:
-        ff = x["ffn"]
-        byts = nbytes(x["src"], x["attn"], out, *ff.values())
         ops = 4.0 * N * Lq * C * F
         rate = BF16_TENSOR_FLOPS
     t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
@@ -289,22 +369,43 @@ def profile_run(driver, video, cls_emb, unprofiled_s):
             "top_kernels_ms": [[n[:80], t] for n, t in top]}
 
 
-def reference_check() -> bool:
-    """The whole path against a reference on a small input: the tiny
-    config's ``run_vis`` in float32 on the card (through the kernels,
-    head width D=8) and on the CPU (plain laws), from the same seeded
-    weights and video.  The same entities must come out, each frame's
-    mask with IoU >= 0.99 and class scores within 1e-3: float32 results
-    that differ only in summation order (cuDNN vs CPU convolutions, the
-    kernels vs the plain laws) may flip a pixel whose logit is ~0."""
+# the kernels of the pixel decoder's encoder layers, run 6 times per encode
+ENCODER_KERNELS = ("msda_sample", "msda_rows", "fused_ffn_ln")
+
+
+def expected_launches(encodes: int = 0, layers: int = 6, **extra) -> dict:
+    """Per-kernel launch expectation of one path: the encoder's kernels
+    once per layer and encode, every other kernel 0 unless named."""
+    from univs_tpu_torch.ops import kernels
+
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({k: layers * encodes for k in ENCODER_KERNELS})
+    want.update(extra)
+    return want
+
+
+def counted(fn):
+    """Run ``fn`` with every launch count set to 0 just before it; returns
+    (its result, the counts read just after a synchronise)."""
+    import torch
+
+    from univs_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def tiny_setup():
+    """The tiny config with relaxed gates (as tests/test_torch_driver.py),
+    a seeded 8-frame 64x96 video and a seeded 5-class bank."""
     import dataclasses
 
     import torch
 
     from univs_tpu_torch.config import tiny_test_config
-    from univs_tpu_torch.inference.driver import EntityDriver
-    from univs_tpu_torch.ops import kernels
-    from univs_tpu_torch.utils import rle
 
     cfg = tiny_test_config()
     cfg = dataclasses.replace(
@@ -316,11 +417,32 @@ def reference_check() -> bool:
     rng = np.random.RandomState(7)
     video = rng.randint(0, 256, (V, H, W, 3)).astype(np.uint8)
     cls_emb = torch.as_tensor(rng.randn(K, cfg.decoder.clip_cls_emb_dim).astype(np.float32))
-    before = kernels.launch_counts()
-    got = EntityDriver(cfg, None, num_classes=K, capacity=6, device="cuda", seed=3).run_vis(video, cls_emb)
-    torch.cuda.synchronize()
-    launched = all(kernels.LAUNCHES[k] > before[k] for k in kernels.KERNELS)
-    want = EntityDriver(cfg, None, num_classes=K, capacity=6, device="cpu", seed=3).run_vis(video, cls_emb)
+    return cfg, video, cls_emb
+
+
+def tiny_drivers(cfg, K, seed):
+    """The same seeded tiny model on the card and on the CPU."""
+    from univs_tpu_torch.inference.driver import EntityDriver
+
+    return (EntityDriver(cfg, None, num_classes=K, capacity=6, device="cuda", seed=seed),
+            EntityDriver(cfg, None, num_classes=K, capacity=6, device="cpu", seed=seed))
+
+
+def reference_check() -> bool:
+    """The whole path against a reference on a small input: the tiny
+    config's ``run_vis`` in float32 on the card (through the kernels,
+    head width D=8) and on the CPU (plain laws), from the same seeded
+    weights and video.  The same entities must come out, each frame's
+    mask with IoU >= 0.99 and class scores within 1e-3: float32 results
+    that differ only in summation order (cuDNN vs CPU convolutions, the
+    kernels vs the plain laws) may flip a pixel whose logit is ~0."""
+    from univs_tpu_torch.utils import rle
+
+    cfg, video, cls_emb = tiny_setup()
+    cuda_d, cpu_d = tiny_drivers(cfg, cls_emb.shape[0], seed=3)
+    got, launches = counted(lambda: cuda_d.run_vis(video, cls_emb))
+    launched = all(launches[k] > 0 for k in ENCODER_KERNELS)
+    want = cpu_d.run_vis(video, cls_emb)
     ok = launched and len(want) >= 1 and [r["obj_id"] for r in got] == [r["obj_id"] for r in want]
     min_iou, max_score_err = 1.0, 0.0
     if ok:
@@ -338,9 +460,105 @@ def reference_check() -> bool:
     return bool(ok)
 
 
+def reference_check_vss() -> bool:
+    """``run_vss`` on the tiny config, float32, card vs CPU (weights of
+    seed 0, which predict two classes): every frame's label map agrees on
+    >= 99 % of its pixels (a pixel whose two best classes are ~tied may
+    flip with the summation order)."""
+    cfg, video, cls_emb = tiny_setup()
+    cuda_d, cpu_d = tiny_drivers(cfg, cls_emb.shape[0], seed=0)
+    got, launches = counted(lambda: cuda_d.run_vss(video, cls_emb))
+    launched = all(launches[k] > 0 for k in ENCODER_KERNELS)
+    want = cpu_d.run_vss(video, cls_emb)
+    agree = [float((g == w).mean()) for g, w in zip(got, want)]
+    ok = launched and got.shape == want.shape and min(agree) >= 0.99
+    emit({"check": "run_vss_tiny_cuda_vs_cpu", "frames": len(agree),
+          "classes_cpu": np.unique(want).tolist(), "kernels_launched": launched,
+          "min_frame_agreement": min(agree), "pass": bool(ok)})
+    return bool(ok)
+
+
+def reference_check_vps() -> bool:
+    """``run_vps`` on the tiny config, float32, card vs CPU, things
+    {1, 3} of 5 classes (weights of seed 0: a thing and a stuff
+    segment): the same segments (ids, classes, thing flags) and every
+    frame's panoptic map agreeing on >= 99 % of its pixels."""
+    cfg, video, cls_emb = tiny_setup()
+    cuda_d, cpu_d = tiny_drivers(cfg, cls_emb.shape[0], seed=0)
+    things = (1, 3)
+    (got, got_info), launches = counted(lambda: cuda_d.run_vps(video, cls_emb, things))
+    launched = all(launches[k] > 0 for k in ENCODER_KERNELS)
+    want, want_info = cpu_d.run_vps(video, cls_emb, things)
+    agree = [float((g == w).mean()) for g, w in zip(got, want)]
+    ok = (launched and len(want_info) >= 1 and got_info == want_info
+          and got.shape == want.shape and min(agree) >= 0.99)
+    emit({"check": "run_vps_tiny_cuda_vs_cpu", "segments_cuda": got_info,
+          "segments_cpu": want_info, "kernels_launched": launched,
+          "min_frame_agreement": min(agree), "pass": bool(ok)})
+    return bool(ok)
+
+
+def check_launches(path: str, launches: dict, expected: dict) -> bool:
+    ok = launches == expected
+    emit({"launches": path, "counted": launches, "expected": expected, "pass": ok})
+    return ok
+
+
+def run_op_path(results):
+    """The MSDA op's tent entry points at the encoder's shape (30 frames,
+    bf16): ``ms_deform_attn(impl='tent-int8')`` and
+    ``ms_deform_attn_tent(level_impl='base')`` take kernel D,
+    ``ms_deform_attn(impl='tent')`` kernel A; each output finite and
+    within its tolerance of the float32 law.  Returns (ok, launches)."""
+    import torch
+
+    from univs_tpu_torch.ops import deformable_attention as da
+    from univs_tpu_torch.ops import msda_rows
+
+    x = make_inputs(FULL_SHAPES, FULL, MAIN_PATH_FRAMES, torch.bfloat16, seed=99)
+    loc = msda_rows.msda_rows_cuda(x["q"], x["wo"], x["bo"], x["wa"], x["ba"], FULL_SHAPES,
+                                   x["M"], x["P"])
+    sl, aw = rows_to_locations(FULL_SHAPES, loc)
+    value = x["value"]
+
+    def drive():
+        return (da.ms_deform_attn(value, FULL_SHAPES, sl, aw, impl="tent-int8"),
+                da.ms_deform_attn_tent(value, FULL_SHAPES, sl, aw, level_impl="base"),
+                da.ms_deform_attn(value, FULL_SHAPES, sl, aw, impl="tent"))
+
+    outs, launches = counted(drive)
+    counts_ok = check_launches("ms_deform_attn", launches,
+                               expected_launches(msda_tent_base=2, msda_sample=1))
+    exact = da.msda_sample_plain(value.float(), FULL_SHAPES, da.locations_to_rows(FULL_SHAPES, sl, aw))
+    scale = float(exact.abs().max())
+    errs = [float((o.float() - exact).abs().max()) for o in outs]
+    out_ok = (all(bool(torch.isfinite(o.float()).all()) and o.shape == exact.shape for o in outs)
+              and errs[0] <= 0.05 * scale and max(errs[1:]) <= 1e-2 * scale)
+    emit({"path": "ms_deform_attn tent entry points", "frames": MAIN_PATH_FRAMES,
+          "f32_law_max_abs": scale, "max_abs_err_tent_int8": errs[0],
+          "max_abs_err_tent_base": errs[1], "max_abs_err_tent": errs[2], "outputs_ok": out_ok})
+    del x, loc, outs
+    torch.cuda.empty_cache()
+    return counts_ok and out_ok, launches
+
+
+def timed_runs(fn, n: int = 3):
+    """Host-clock seconds of ``n`` calls, each ending in a synchronise."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
 def run_main_path():
     """``EntityDriver.run_vis`` for UniVS-R50 VIS at full width on the card.
-    Returns (ok, launches of each kernel in the first timed run)."""
+    Returns (ok, launches of each kernel in the first timed run, the
+    driver)."""
     import dataclasses
 
     import torch
@@ -349,10 +567,9 @@ def run_main_path():
     from univs_tpu_torch.inference import memory_pool as mp
     from univs_tpu_torch.inference.driver import EntityDriver
     from univs_tpu_torch.inference.entity import entity_clip_step
-    from univs_tpu_torch.ops import kernels
 
     cfg = UniVSConfig(dtype="bfloat16")
-    V, H, W, K = MAIN_PATH_FRAMES, 640, 960, 40
+    (H, W), V, K = FULL_HW, MAIN_PATH_FRAMES, 40
     E = cfg.inference.max_num_instances
     rng = np.random.RandomState(0)
     video = (rng.rand(V, H, W, 3) * 255).astype(np.uint8)
@@ -361,26 +578,14 @@ def run_main_path():
     n_enc = driver.num_window_encodes(V)
     n_clips = sum(1 for _ in driver._iter_clips(V))
 
+    warm_s = timed_runs(lambda: driver.run_vis(video, cls_emb), 1)[0]  # cuDNN plans, allocator
     t0 = time.perf_counter()
-    driver.run_vis(video, cls_emb)  # warm-up: cuDNN plans, allocator
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    results = driver.run_vis(video, cls_emb)
-    torch.cuda.synchronize()
+    results, launches = counted(lambda: driver.run_vis(video, cls_emb))
     run_s = [time.perf_counter() - t0]
-    launches = kernels.launch_counts()
-
-    expected = cfg.pixel_decoder.num_layers * n_enc
-    counts_ok = all(launches[k] == expected for k in kernels.KERNELS)
+    expected = expected_launches(n_enc, cfg.pixel_decoder.num_layers)
+    counts_ok = check_launches("run_vis", launches, expected)
     out_ok = check_results(results, V, H, W, E, K)
-    for _ in range(2):  # the spread of the host-clock reading
-        t0 = time.perf_counter()
-        driver.run_vis(video, cls_emb)
-        torch.cuda.synchronize()
-        run_s.append(time.perf_counter() - t0)
+    run_s += timed_runs(lambda: driver.run_vis(video, cls_emb), 2)  # the host clock's spread
 
     # the first 10 frames with the class and consistency gates open, so
     # that entities are admitted and the drain (upsample, threshold,
@@ -393,7 +598,7 @@ def run_main_path():
     Vo = 10
     t0 = time.perf_counter()
     handle = open_driver.start_vis(video[:Vo], cls_emb)
-    open_driver._queue_drain(handle)
+    open_driver._queue_drain(handle, handle["sizes"])
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     open_results = open_driver.finish_vis(handle)
@@ -435,6 +640,130 @@ def run_main_path():
           "launches_ok": counts_ok, "outputs_ok": out_ok})
     prof = profile_run(driver, video, cls_emb, run_s)
     emit(prof if prof is not None else {"profile": "run_vis", "device_time": "not measured"})
+    del pool, feats, mf, ms, frames_d, window
+    torch.cuda.empty_cache()
+    return counts_ok and out_ok, launches, driver
+
+
+def full_width_video(seed: int):
+    """A seeded uint8 video at the full-width size and a seeded VSPW /
+    VIPSeg-sized class bank."""
+    import torch
+
+    from univs_tpu_torch.config import UniVSConfig
+
+    rng = np.random.RandomState(seed)
+    video = (rng.rand(MAIN_PATH_FRAMES, *FULL_HW, 3) * 255).astype(np.uint8)
+    dim = UniVSConfig().decoder.clip_cls_emb_dim
+    return video, torch.as_tensor(rng.randn(VSPW_CLASSES, dim).astype(np.float32))
+
+
+def run_vss_path(model):
+    """``EntityDriver.run_vss`` (VSPW, K=124) at full width with the VIS
+    phase's model: three timed runs after a warm-up; labels [V, H, W]
+    int32 in [0, K).  Returns (ok, launches of the first timed run)."""
+    import math
+
+    import torch
+
+    from univs_tpu_torch.inference.driver import EntityDriver
+
+    cfg = model.cfg
+    (H, W), V, K = FULL_HW, MAIN_PATH_FRAMES, VSPW_CLASSES
+    video, cls_emb = full_width_video(1)
+    driver = EntityDriver(cfg, model, num_classes=K, capacity=cfg.inference.max_num_instances)
+    warm_s = timed_runs(lambda: driver.run_vss(video, cls_emb), 1)[0]
+    t0 = time.perf_counter()
+    labels, launches = counted(lambda: driver.run_vss(video, cls_emb))
+    run_s = [time.perf_counter() - t0]
+    encodes = math.ceil(V / driver.T)
+    counts_ok = check_launches("run_vss", launches,
+                               expected_launches(encodes, cfg.pixel_decoder.num_layers))
+    run_s += timed_runs(lambda: driver.run_vss(video, cls_emb), 2)
+    out_ok = (labels.shape == (V, H, W) and labels.dtype == np.int32
+              and 0 <= int(labels.min()) and int(labels.max()) < K)
+    emit({"path": "EntityDriver.run_vss", "config": "UniVS-R50 VSS (VSPW), bf16",
+          "frames": V, "height": H, "width": W, "T": driver.T, "classes": K,
+          "clip_encodes": encodes, "warmup_s": warm_s, "run_s": run_s,
+          "fps_runs": [V / t for t in run_s], "classes_predicted": len(np.unique(labels)),
+          "launches": launches, "launches_ok": counts_ok, "outputs_ok": out_ok})
+    torch.cuda.empty_cache()
+    return counts_ok and out_ok, launches
+
+
+def vps_split(driver, video, cls_emb):
+    """One ``run_vps`` in its two halves: the device stream (clip loop,
+    drain, fetch) and the host's panoptic stitching, each timed."""
+    import torch
+
+    from univs_tpu_torch.inference.driver import assemble_vps_results, vps_thing_mask
+
+    V, H, W = video.shape[:3]
+    t0 = time.perf_counter()
+    stream = driver._stream(video, cls_emb, divide=False,
+                            thing_mask=vps_thing_mask(VIPSEG_THING_IDS, cls_emb.shape[0]))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pan, info = assemble_vps_results(*stream[:4], V, VIPSEG_THING_IDS,
+                                     driver.cfg.inference.overlap_threshold, (H, W), (H, W), (H, W))
+    t2 = time.perf_counter()
+    return pan, info, {"frames": V, "segments": len(info),
+                       "pool_entities": int(stream[4].valid.sum()),
+                       "device_s": t1 - t0, "host_stitching_s": t2 - t1}
+
+
+def check_panoptic(pan, info, V, H, W, K) -> bool:
+    ids = {r["id"] for r in info}
+    return bool(pan.shape == (V, H, W) and pan.dtype == np.int32
+                and set(np.unique(pan).tolist()) <= ids | {0}
+                and all(1 <= r["category_id"] <= K for r in info))
+
+
+def run_vps_path(model):
+    """``EntityDriver.run_vps`` (VIPSeg: K=124, its 58 thing classes, 60
+    slots) at full width with the VIS phase's model: three timed runs
+    after a warm-up, then one run split into device and host-stitching
+    time; when the random weights admit no entity at the default gates,
+    the first 10 frames again with the class and consistency gates open
+    so that the stitching runs at full resolution.  Returns (ok,
+    launches of the first timed run)."""
+    import dataclasses
+
+    import torch
+
+    from univs_tpu_torch.inference.driver import EntityDriver
+
+    cfg = model.cfg
+    (H, W), V, K = FULL_HW, MAIN_PATH_FRAMES, VIPSEG_CLASSES
+    E = cfg.inference.max_num_instances
+    video, cls_emb = full_width_video(2)
+    driver = EntityDriver(cfg, model, num_classes=K, capacity=E)
+    n_enc = driver.num_window_encodes(V)
+    warm_s = timed_runs(lambda: driver.run_vps(video, cls_emb, VIPSEG_THING_IDS), 1)[0]
+    t0 = time.perf_counter()
+    (pan, info), launches = counted(lambda: driver.run_vps(video, cls_emb, VIPSEG_THING_IDS))
+    run_s = [time.perf_counter() - t0]
+    counts_ok = check_launches("run_vps", launches,
+                               expected_launches(n_enc, cfg.pixel_decoder.num_layers))
+    out_ok = check_panoptic(pan, info, V, H, W, K)
+    run_s += timed_runs(lambda: driver.run_vps(video, cls_emb, VIPSEG_THING_IDS), 2)
+    _, _, split = vps_split(driver, video, cls_emb)
+    rec = {"path": "EntityDriver.run_vps", "config": "UniVS-R50 VPS (VIPSeg), bf16",
+           "frames": V, "height": H, "width": W, "T": driver.T, "capacity": E, "classes": K,
+           "things": len(VIPSEG_THING_IDS), "window_encodes": n_enc, "warmup_s": warm_s,
+           "run_s": run_s, "fps_runs": [V / t for t in run_s], "segments": len(info),
+           "split": split, "launches": launches, "launches_ok": counts_ok}
+    if not info:
+        relaxed = dataclasses.replace(cfg, inference=dataclasses.replace(
+            cfg.inference, apply_cls_thres=0.0, consistency_thres=(-1.0, 0.5)))
+        open_driver = EntityDriver(relaxed, model, num_classes=K, capacity=E)
+        Vo = 10
+        open_pan, open_info, rec["gates_open"] = vps_split(open_driver, video[:Vo], cls_emb)
+        out_ok &= len(open_info) > 0 and check_panoptic(open_pan, open_info, Vo, H, W, K)
+        rec["gates_open"]["things"] = sum(r["isthing"] for r in open_info)
+    rec["outputs_ok"] = out_ok
+    emit(rec)
+    torch.cuda.empty_cache()
     return counts_ok and out_ok, launches
 
 
@@ -465,20 +794,37 @@ def main() -> int:
 
     results: dict = {}
     ok = kernel_checks(results)
-    path_ok, launches = run_main_path()
+    by_path = {}
+    path_ok, by_path["ms_deform_attn"] = run_op_path(results)
     ok &= path_ok
+    path_ok, by_path["run_vis"], vis_driver = run_main_path()
+    ok &= path_ok
+    for name, run in (("run_vss", run_vss_path), ("run_vps", run_vps_path)):
+        path_ok, by_path[name] = run(vis_driver.model)
+        ok &= path_ok
+    del vis_driver
+    torch.cuda.empty_cache()
     ok &= reference_check()
+    ok &= reference_check_vss()
+    ok &= reference_check_vps()
 
     rows = []
     for name in kernels.KERNELS:
         r = results[name]
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": sum(c[name] for c in by_path.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-        })
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+        }
+        if name == "msda_tent_base":  # the row is the int8 slab; the dtype mode beside it
+            d = results["msda_tent_base/dtype"]
+            row["dtype_mode"] = {"ms": d["kernel_ms"], "plain_ms": d["plain_ms"],
+                                 "bound_ms": d["bound_ms"], "max_abs_err": d["max_abs_err"]}
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     if not ok:

@@ -1,13 +1,17 @@
-"""Video inference driver, VIS (counterpart of the VIS half of
-``univs_tpu/inference/driver.py``).
+"""Video inference driver, VIS / VPS / VSS (counterpart of
+``EntityDriver`` in ``univs_tpu/inference/driver.py``).
 
 ``EntityDriver`` streams one video: backbone + pixel decoder once per
 ``num_frames_window`` frames (uint8 frames uploaded, normalized on the
 device), ``entity_clip_step`` once per clip from the ONE clip schedule
 ``_iter_clips``, window emission with eviction, and at the end of the
-video the drain: only the finally-valid entity rows are upsampled,
-thresholded and bit-packed on the device, then fetched and turned into
-per-frame RLEs on the host (``assemble_vis_results``).
+video the drain.  VIS: only the finally-valid entity rows are
+upsampled, thresholded and bit-packed on the device, then fetched and
+turned into per-frame RLEs on the host (``assemble_vis_results``).  VPS
+(``run_vps``): the pixel newly-entity variant, raw (undivided) windows
+of every slot, and the reference's panoptic stitching on the host in
+numpy.  VSS (``run_vss``): per-clip semantic labels from the learnable
+queries, no cross-clip state.
 
 ``start_vis`` / ``finish_vis`` keep the JAX package's pipelined API; in
 this port they run in order on the current stream (overlapping the
@@ -18,7 +22,8 @@ pool is updated in place; every emitted window is a copy taken before
 
 from __future__ import annotations
 
-from typing import Dict, List
+import dataclasses
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -65,7 +70,7 @@ def _upsample_threshold_pack(logits: torch.Tensor, image_size, out_size, padded_
 
 
 class EntityDriver:
-    """Category-guided VIS over one video.
+    """Category-guided VIS / VPS / VSS over one video.
 
     Args:
         cfg: UniVSConfig
@@ -75,10 +80,12 @@ class EntityDriver:
         num_classes: K of the category bank slice
         capacity: entity slots E
         device: None -> the card (raises without one); "cpu" explicitly
+        thing_class_ids: 1-based thing classes of a panoptic dataset
+            (``run_vps`` takes its own)
     """
 
     def __init__(self, cfg: UniVSConfig, params=None, num_classes: int = 1, capacity: int = 40,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, thing_class_ids: Optional[Sequence[int]] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         if isinstance(params, UniVSModel):
@@ -88,6 +95,7 @@ class EntityDriver:
         self.dtype = compute_dtype_of(cfg)
         self.num_classes = num_classes
         self.capacity = capacity
+        self.thing_class_ids = set(thing_class_ids or [])
         inf = cfg.inference
         self.T = inf.num_frames
         self.stride = inf.clip_stride
@@ -106,6 +114,9 @@ class EntityDriver:
             num_frames=self.T,
             detect_newly_interval_frames=inf.detect_newly_interval_frames,
         )
+        # the VPS panoptic newly-entity variant (reference dispatch
+        # inference_video_entity.py:367-370)
+        self.cc_pixel = dataclasses.replace(self.cc, variant="pixel")
         self._modules = (self.model.pixel_decoder, self.model.decoder)
 
     # ------------------------------------------------------------------
@@ -158,16 +169,23 @@ class EntityDriver:
         return sum(c["new_window"] is not None for c in self._iter_clips(V))
 
     def _emit(self, pool: mp.EntityMemory, out_frames: int):
-        """Copies of the first ``out_frames`` window frames (fp16, divided
-        by occurrence — save_results_vis:931), the per-window class-score
-        snapshot (logits-history mean, :926)."""
+        """Copies of the first ``out_frames`` window frames, fp16: divided
+        by occurrence (VIS, save_results_vis:931) and raw (VPS,
+        save_results_vps:984); the per-window class-score snapshot
+        (logits-history mean, :926); a snapshot of ``valid``, which the
+        pool's later in-place updates would change."""
+        raw = pool.mask_logits[:, :out_frames]
         occ = pool.occurrence[:, :out_frames].clamp(min=1.0)
-        masks = (pool.mask_logits[:, :out_frames] / occ[:, :, None, None]).to(torch.float16)
+        divided = (raw / occ[:, :, None, None]).to(torch.float16)
         scores = pool.logits_sum / pool.logits_count.clamp(min=1)[:, None]
-        return masks, scores
+        return divided, raw.to(torch.float16), scores, pool.valid.clone()
 
     @torch.no_grad()
-    def _dispatch(self, frames, cls_emb, next_frames=None) -> Dict:
+    def _dispatch(self, frames, cls_emb, divide: bool, thing_mask=None, next_frames=None) -> Dict:
+        """One video's whole clip loop; ``thing_mask`` ([K] bool) selects
+        the VPS pixel newly-entity variant, ``divide`` the VIS windows
+        (else raw).  ``next_frames`` (the NEXT video) is uploaded after
+        this video's compute."""
         V, H, W = frames.shape[:3]
         dev = self.device
         pool = mp.create_entity_memory(
@@ -179,11 +197,16 @@ class EntityDriver:
         # are normalized on the device inside the window encode
         frames_d = torch.as_tensor(frames).to(dev)
         cls_emb = torch.as_tensor(cls_emb).to(device=dev, dtype=torch.float32)
+        cc = self.cc
+        if thing_mask is not None:
+            thing_mask = torch.as_tensor(thing_mask, dtype=torch.bool, device=dev)
+            cc = self.cc_pixel
 
         feats_window = None
         emitted: List[torch.Tensor] = []
         emit_starts: List[int] = []
         emit_scores: List[torch.Tensor] = []
+        emit_valids: List[torch.Tensor] = []
         first = True
         for c in self._iter_clips(V):
             if c["new_window"] is not None:
@@ -194,15 +217,16 @@ class EntityDriver:
             rel = torch.as_tensor(c["rel"], device=dev)
             feats = (mf_w[rel], tuple(m[rel] for m in ms_w))
             entity_clip_step(self._modules, feats, pool, c["clip_idx"], c["offset"], first,
-                             cls_emb, self.cc)
+                             cls_emb, cc, thing_mask)
             first = False
             for start, n_out in c["emits"]:
                 # emit + evict exactly n_out frames: the trailing T overlap
                 # frames stay in the pool and keep accumulating
-                masks, scores = self._emit(pool, n_out)
+                divided, raw, scores, valid = self._emit(pool, n_out)
                 mp.evict_window(pool, n_out)
-                emitted.append(masks)
+                emitted.append(divided if divide else raw)
                 emit_scores.append(scores)
+                emit_valids.append(valid)
                 emit_starts.append(start)
             if not c["is_last"]:
                 mp.shift_clip(pool, self.stride)
@@ -212,31 +236,44 @@ class EntityDriver:
             next_dev = torch.as_tensor(next_frames).to(dev)
         return {
             "V": V, "pool": pool, "emitted": emitted, "emit_starts": emit_starts,
-            "emit_scores": emit_scores,
+            "emit_scores": emit_scores, "emit_valids": emit_valids,
             "next_frames_device": next_dev, "drained": False,
         }
 
     @torch.no_grad()
-    def _queue_drain(self, h: Dict) -> None:
-        """Upsample + threshold + bit-pack only the finally-valid entity
-        rows of every emitted window (one host sync on ``valid``)."""
+    def _queue_drain(self, h: Dict, packed_sizes=None) -> None:
+        """With ``packed_sizes`` (image, out, padded size): upsample +
+        threshold + bit-pack only the finally-valid entity rows of every
+        emitted window (one host sync on ``valid``); without, the windows
+        stay fp16 quarter-resolution logits of every slot."""
         if h["drained"]:
             return
         h["drained"] = True
-        entity_rows = np.flatnonzero(h["pool"].valid.cpu().numpy())
-        if entity_rows.size:
-            idx = torch.as_tensor(entity_rows, device=self.device)
-            h["emitted"] = [_upsample_threshold_pack(m[idx], *h["sizes"]) for m in h["emitted"]]
-        else:
-            oh, ow = h["sizes"][1]
-            h["emitted"] = [torch.zeros((0, m.shape[1], oh, (ow + 7) // 8), dtype=torch.uint8)
-                            for m in h["emitted"]]
+        entity_rows = None
+        if packed_sizes is not None:
+            entity_rows = np.flatnonzero(h["pool"].valid.cpu().numpy())
+            if entity_rows.size:
+                idx = torch.as_tensor(entity_rows, device=self.device)
+                h["emitted"] = [_upsample_threshold_pack(m[idx], *packed_sizes) for m in h["emitted"]]
+            else:
+                oh, ow = packed_sizes[1]
+                h["emitted"] = [torch.zeros((0, m.shape[1], oh, (ow + 7) // 8), dtype=torch.uint8)
+                                for m in h["emitted"]]
         h["entity_rows"] = entity_rows
 
     def _fetch(self, h: Dict):
         emitted = [m.cpu().numpy() for m in h["emitted"]]
         emit_scores = [s.cpu().numpy() for s in h["emit_scores"]]
-        return emitted, h["emit_starts"], emit_scores, h["pool"], h["entity_rows"]
+        emit_valids = [v.cpu().numpy() for v in h["emit_valids"]]
+        return emitted, h["emit_starts"], emit_scores, emit_valids, h["pool"], h["entity_rows"]
+
+    def _stream(self, frames, cls_emb, divide: bool, thing_mask=None):
+        """Dispatch + drain (unpacked) + fetch one video -> (emitted fp16
+        windows of every slot, window starts, score snapshots, valid
+        snapshots, final pool, entity_rows=None)."""
+        h = self._dispatch(frames, cls_emb, divide, thing_mask=thing_mask)
+        self._queue_drain(h)
+        return self._fetch(h)
 
     # -- VIS API ---------------------------------------------------------
 
@@ -248,14 +285,14 @@ class EntityDriver:
         V, H, W = frames.shape[:3]
         image_size = tuple(image_size or (H, W))
         out_size = tuple(out_size or image_size)
-        h = self._dispatch(frames, cls_emb, next_frames=next_frames)
+        h = self._dispatch(frames, cls_emb, divide=True, next_frames=next_frames)
         h["sizes"] = (image_size, out_size, (H, W))
         return h
 
     def finish_vis(self, h: Dict) -> List[Dict]:
         """Drain + assemble a :meth:`start_vis` handle into per-entity results."""
-        self._queue_drain(h)
-        emitted, emit_starts, emit_scores, pool, entity_rows = self._fetch(h)
+        self._queue_drain(h, h["sizes"])
+        emitted, emit_starts, emit_scores, _, pool, entity_rows = self._fetch(h)
         return assemble_vis_results(
             emitted, emit_starts, emit_scores, pool.valid.cpu().numpy(),
             pool.quality_sum.cpu().numpy(), h["V"], h["sizes"][1], entity_rows)
@@ -265,6 +302,227 @@ class EntityDriver:
         dicts with per-frame RLEs and class scores
         (inference_video_entity.py:914-961)."""
         return self.finish_vis(self.start_vis(frames, cls_emb, image_size, out_size))
+
+    # -- VSS / VPS -------------------------------------------------------
+
+    @torch.no_grad()
+    def run_vss(self, frames, cls_emb, image_size=None, out_size=None) -> np.ndarray:
+        """VSS: per-clip semantic argmax from the learnable queries, no
+        cross-clip state; clips of T frames at stride T, each encoding
+        its own frames, the short tail clip at its true length (reference:
+        inference_video_entity.py:299,357-360,1096-1132; the law is
+        ``vss_semantic_labels``, the final nearest resize to ``out_size``
+        runs on the host after the argmax, with which it commutes).
+        Returns per-frame class maps [V, out_h, out_w] int32."""
+        V, H, W = frames.shape[:3]
+        image_size = tuple(image_size or (H, W))
+        out_size = tuple(out_size or image_size)
+        dev = self.device
+        frames_d = torch.as_tensor(frames).to(dev)
+        cls_emb = torch.as_tensor(cls_emb).to(device=dev, dtype=torch.float32)
+        decoder = self.model.decoder
+        labels = np.zeros((V, *out_size), np.int32)
+        for i in range(0, V, self.T):
+            Tc = min(self.T, V - i)
+            clip_idx = np.minimum(np.arange(i, i + self.T), V - 1)
+            mf, ms = self.encode_window(frames_d[torch.as_tensor(clip_idx, device=dev)])
+            if Tc < self.T:  # the true short tail clip (reference semantics)
+                mf, ms = mf[:Tc], tuple(m[:Tc] for m in ms)
+            fi = torch.as_tensor(clip_idx[:Tc], device=dev)[None]
+            out = decoder(ms, mf, fi, task="detection", cls_emb=cls_emb)
+            sem = vss_semantic_labels(out["pred_logits"][0], out["pred_masks"][0], (H, W),
+                                      image_size)
+            labels[i:i + Tc] = _resize_labels_nearest(sem.cpu().numpy(), out_size)
+        return labels
+
+    def run_vps(self, frames, cls_emb, thing_class_ids, image_size=None, out_size=None):
+        """VPS: entity tracking with the pixel newly-entity variant, raw
+        (undivided) windows of every slot, then the panoptic stitching on
+        the host (``assemble_vps_results``).  ``thing_class_ids`` are
+        1-based.  Returns (panoptic [V, out_h, out_w] int32 segment ids,
+        segments_info list)."""
+        V, H, W = frames.shape[:3]
+        image_size = tuple(image_size or (H, W))
+        out_size = tuple(out_size or image_size)
+        K = int(cls_emb.shape[0])
+        emitted, emit_starts, emit_scores, emit_valids, _, _ = self._stream(
+            frames, cls_emb, divide=False, thing_mask=vps_thing_mask(thing_class_ids, K))
+        return assemble_vps_results(emitted, emit_starts, emit_scores, emit_valids, V,
+                                    thing_class_ids, self.cfg.inference.overlap_threshold,
+                                    image_size, out_size, (H, W))
+
+
+def vps_thing_mask(thing_class_ids, num_classes: int) -> np.ndarray:
+    """1-based thing class ids -> [K] bool."""
+    mask = np.zeros((num_classes,), bool)
+    for t in thing_class_ids:
+        if 1 <= int(t) <= num_classes:
+            mask[int(t) - 1] = True
+    return mask
+
+
+def assemble_vps_results(emitted, emit_starts, emit_scores, emit_valids, V: int, thing_class_ids,
+                         overlap_thr: float, image_size, out_size, padded_size):
+    """Per-window panoptic stitching on the host in numpy, the JAX
+    package's transcription of ``save_results_vps``
+    (inference_video_entity.py:963-1094): raw accumulated mask logits
+    [E, n, h4, w4] per window, per-window score = history-mean class
+    score max x mask quality (0.75 for stuff not yet registered as a
+    thing), per-pixel argmax over score-weighted logits, background where
+    every sigmoid < 0.5, the per-entity area-ratio filter (halved once a
+    thing is tracked), stuff merged by class with persistent segment ids.
+    Returns (panoptic [V, out_h, out_w] int32 segment ids, segments_info
+    list)."""
+    thing_ids = set(int(t) for t in thing_class_ids)  # 1-based
+    panoptic = np.zeros((V, *out_size), np.int32)
+    thing_memory: Dict[int, int] = {}
+    stuff_memory: Dict[int, int] = {}
+    final_scores = None
+
+    for win_masks, start, win_scores, win_valid in zip(
+        emitted, emit_starts, emit_scores, emit_valids
+    ):
+        final_scores = win_scores
+        n = min(win_masks.shape[1], V - start)
+        valid_idx = np.nonzero(win_valid)[0]
+        if len(valid_idx) == 0 or n <= 0:
+            continue
+        E = len(valid_idx)
+        cls_scores = win_scores[valid_idx]  # [E, K] history mean
+        cur_scores_cls = cls_scores.max(-1)
+        cur_classes = cls_scores.argmax(-1) + 1  # 1-based
+
+        def up(t):  # [E, out_h, out_w] raw accumulated logits
+            return _upsample_logits(win_masks[valid_idx, t], image_size, out_size, padded_size)
+
+        # pass 1: per-entity quality over the WHOLE window (:998)
+        q_pos = np.zeros(E)
+        q_tot = np.zeros(E)
+        ups = {}
+        for t in range(n):
+            lg = up(t)
+            ups[t] = lg if n <= 8 else None  # cache small windows
+            q_pos += (lg > 1).reshape(E, -1).sum(-1)
+            q_tot += (lg > -1).reshape(E, -1).sum(-1)
+        qual = q_pos / np.maximum(q_tot, 1)
+        scores = cur_scores_cls * qual
+        for j, e in enumerate(valid_idx):
+            if int(cur_classes[j]) not in thing_ids and int(e) not in thing_memory:
+                scores[j] *= 0.75  # thing priority (:1000-1001)
+
+        # pass 2: per-pixel argmax (winning entity where its own
+        # sigmoid >= 0.5) + window-level area accumulation
+        mask_ids_w = np.full((n, *out_size), -1, np.int16)
+        winner_on = np.zeros((n, *out_size), bool)  # winner's sig >= 0.5
+        mask_area = np.zeros(E, np.int64)
+        original_area = np.zeros(E, np.int64)
+        painted_count = np.zeros(E, np.int64)
+        for t in range(n):
+            lg = ups[t] if ups.get(t) is not None else up(t)
+            sig = 1.0 / (1.0 + np.exp(-lg))
+            prob = scores[:, None, None] * lg
+            ids_t = prob.argmax(0).astype(np.int16)
+            is_bg = (sig < 0.5).sum(0) == E
+            ids_t[is_bg] = -1
+            mask_ids_w[t] = ids_t
+            win_sig = np.take_along_axis(sig, np.maximum(ids_t, 0)[None], 0)[0]
+            winner_on[t] = (ids_t >= 0) & (win_sig >= 0.5)
+            for j in range(E):
+                sel = ids_t == j
+                mask_area[j] += int(sel.sum())
+                original_area[j] += int((sig[j] >= 0.5).sum())
+                painted_count[j] += int((sel & winner_on[t]).sum())
+
+        # pass 3: register segment ids in entity order (pixels are
+        # disjoint, so only the id allocation order matters)
+        seg_table = np.zeros(E + 1, np.int32)  # index -1 -> last -> 0
+        for j, e in enumerate(valid_idx):
+            pred_class = int(cur_classes[j])
+            isthing = pred_class in thing_ids
+            if mask_area[j] == 0 or original_area[j] == 0 or painted_count[j] == 0:
+                continue
+            thr = 0.5 * overlap_thr if int(e) in thing_memory else overlap_thr
+            if isthing and mask_area[j] / original_area[j] < thr:
+                continue
+            if not isthing:
+                if pred_class not in stuff_memory:
+                    stuff_memory[pred_class] = max(
+                        list(thing_memory.values()) + list(stuff_memory.values()), default=0) + 1
+                seg_table[j] = stuff_memory[pred_class]
+            else:
+                if int(e) not in thing_memory:
+                    thing_memory[int(e)] = max(
+                        list(thing_memory.values()) + list(stuff_memory.values()), default=0) + 1
+                seg_table[j] = thing_memory[int(e)]
+
+        for t in range(n):
+            lab = seg_table[mask_ids_w[t]]
+            panoptic[start + t] = np.where(winner_on[t], lab, 0)
+
+    # segments_info from the memory dicts + the final class snapshot
+    # (reference: vps_output_results)
+    segments_info = []
+    cls_final = final_scores.argmax(-1) + 1 if final_scores is not None else None
+    for obj_id, seg_id in thing_memory.items():
+        c = int(cls_final[obj_id]) if cls_final is not None else 0
+        segments_info.append({"id": seg_id, "isthing": c in thing_ids, "category_id": c})
+    for stuff_class, seg_id in stuff_memory.items():
+        segments_info.append({"id": seg_id, "isthing": False, "category_id": int(stuff_class)})
+    return panoptic, segments_info
+
+
+def vss_semantic_labels(pred_logits: torch.Tensor, pred_masks: torch.Tensor, padded_hw,
+                        image_hw) -> torch.Tensor:
+    """Per-clip semantic label maps, the transcription of
+    ``save_results_vss`` (inference_video_entity.py:1096-1132,
+    calculate_mask_quality_scores, utils/comm.py:86-89): pred_logits
+    [Q, K] raw, pred_masks [Q, Tc, h4, w4] raw logits; each frame's
+    logits upsampled bilinearly to ``padded_hw`` and cropped to
+    ``image_hw``; quality = count(> 1) / count(> -1) per query over the
+    clip; evidence = sum_q sigmoid(logit) * quality * sigmoid(mask);
+    argmax.  One frame at a time (the JAX package's scan / map).
+    Returns [Tc, ih, iw] int32."""
+    ih, iw = image_hw
+    logits = torch.sigmoid(pred_logits.to(torch.float32))  # [Q, K]
+    masks_t = pred_masks.to(torch.float32).transpose(0, 1)  # [Tc, Q, h4, w4]
+    Q = logits.shape[0]
+
+    def up_frame(mt):  # [Q, h4, w4] -> [Q, ih, iw] logits
+        u = F.interpolate(mt[None], size=tuple(padded_hw), mode="bilinear", align_corners=False)
+        return u[0, :, :ih, :iw]
+
+    pos = torch.zeros((Q,), dtype=torch.int64, device=logits.device)
+    tot = torch.zeros_like(pos)
+    for mt in masks_t:
+        u = up_frame(mt)
+        pos += (u > 1).sum(dim=(1, 2))
+        tot += (u > -1).sum(dim=(1, 2))
+    quality = pos.to(torch.float32) / tot.clamp(min=1).to(torch.float32)
+    wlogits = logits * quality[:, None]  # [Q, K]
+    labels = []
+    for mt in masks_t:
+        u = torch.sigmoid(up_frame(mt))
+        sem = torch.einsum("qc,qhw->chw", wlogits, u)
+        labels.append(torch.argmax(sem, dim=0).to(torch.int32))
+    return torch.stack(labels)
+
+
+def _resize_labels_nearest(labels: np.ndarray, out_size) -> np.ndarray:
+    """[T, h, w] int labels -> [T, out] nearest resize (save_results_vss's
+    final ``F.interpolate(..., mode='nearest')``)."""
+    m = torch.from_numpy(labels.astype(np.float32))[None]
+    m = F.interpolate(m, size=tuple(out_size), mode="nearest")
+    return m[0].numpy().astype(np.int32)
+
+
+def _upsample_logits(mask_logits: np.ndarray, image_size, out_size, padded_size) -> np.ndarray:
+    """[n, h4, w4] logits -> [n, out_h, out_w] float32: bilinear to the
+    padded size, crop, bilinear to the output size (save_results_vps)."""
+    m = torch.from_numpy(mask_logits.astype(np.float32))[None]
+    m = F.interpolate(m, size=tuple(padded_size), mode="bilinear", align_corners=False)
+    m = m[:, :, : image_size[0], : image_size[1]]
+    m = F.interpolate(m, size=tuple(out_size), mode="bilinear", align_corners=False)
+    return m[0].numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Category-guided video inference, instance variant (VIS) — counterpart
-of ``univs_tpu/inference/entity.py``.
+"""Category-guided video inference, VIS / VPS / VSS — counterpart of
+``univs_tpu/inference/entity.py``.
 
 One clip step: re-encode mask prompts from the pool's committed frames,
 run the sot decode with memory-pool prompt queries (ProCA), gate tracked
@@ -12,13 +12,16 @@ indices) is host data, so every branch on it is a Python branch.
 
 Thresholds as the reference (inference_video_entity.py): consistency
 0.25 (halved while the clip starts within the first T frames), newly-
-entity match 0.1, class 0.25, box NMS 0.85, overlap 0.8.
+entity match 0.1, class 0.25, box NMS 0.85, overlap 0.8.  Two newly-
+entity variants, as the reference dispatches them
+(inference_video_entity.py:367-370): 'instance' (VIS) and 'pixel' (VPS
+panoptic, with the dataset's thing classes).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
-from typing import Sequence
+from dataclasses import dataclass
+from typing import Optional, Sequence
 
 import torch
 
@@ -40,8 +43,8 @@ def mask_quality_scores(mask_logits: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class EntityClipConfig:
-    """Knobs of the clip step (the JAX package's fields for the instance
-    variant)."""
+    """Knobs of the clip step (the JAX package's fields, less its
+    measurement-only ``ablate`` and the RefVOS grounding switch)."""
 
     num_queries: int = 200
     topk_candidates: int = 25
@@ -51,22 +54,28 @@ class EntityClipConfig:
     consistency_thres: float = 0.25
     nms_thres: float = 0.85
     overlap_thres: float = 0.8
+    # candidates need a mask quality above this (instance variant; 0 = off)
+    stability_thres: float = 0.0
     num_dense_points: int = 128
     clip_stride: int = 1
     num_frames: int = 5
+    # newly-entity detection: 'instance' (VIS) or 'pixel' (VPS panoptic)
+    variant: str = "instance"
     detect_newly_interval_frames: int = 1
 
 
 def entity_clip_step(modules, encoded, pool: mp.EntityMemory, frame_indices: Sequence[int],
                      clip_offset: int, is_first_clip: bool, cls_emb: torch.Tensor,
-                     cc: EntityClipConfig) -> mp.EntityMemory:
+                     cc: EntityClipConfig,
+                     thing_mask: Optional[torch.Tensor] = None) -> mp.EntityMemory:
     """One clip of category-guided inference; updates ``pool`` in place
     and returns it.
 
     modules: (pixel_decoder, decoder); encoded: (mask_features [T, h4,
     w4, C], multi-scale tuple) — per-frame pixel-decoder outputs sliced
     from the window encode; frame_indices: T absolute frame indices;
-    clip_offset: first clip frame relative to the pool window."""
+    clip_offset: first clip frame relative to the pool window;
+    thing_mask: [K] bool thing classes of the pixel variant (None: all)."""
     _, decoder = modules
     frames = [int(f) for f in frame_indices]
     T = len(frames)
@@ -124,7 +133,10 @@ def entity_clip_step(modules, encoded, pool: mp.EntityMemory, frame_indices: Seq
     if cc.detect_newly_interval_frames > 1:
         clip_idx = frames[0] // max(cc.clip_stride, 1)
         detect = clip_idx % cc.detect_newly_interval_frames == 0 or not bool(pool.valid.any())
-    if detect:
+    if detect and cc.variant == "pixel":
+        _detect_newly_pixel(pool, clip_offset, frames, is_first_clip, logits_l, masks_l, embds_l,
+                            thing_mask, cc)
+    elif detect:
         _detect_newly_instance(pool, clip_offset, frames, is_first_clip, logits_l, masks_l,
                                embds_l, cc)
 
@@ -135,13 +147,13 @@ def _detect_newly_instance(pool, clip_offset, frames, is_first_clip, logits_l, m
                            cc: EntityClipConfig):
     """VIS newly-entity detection (detect_newly_entities_per_clip_instance,
     inference_video_entity.py:517-652)."""
-    E = pool.capacity
-    T = len(frames)
     Ql = logits_l.shape[0]
     dev = logits_l.device
     q_l = mask_quality_scores(masks_l)
     scored = logits_l * q_l[:, None]
     nms_scores = scored.amax(-1)
+    if cc.stability_thres > 0:
+        nms_scores = torch.where(q_l > cc.stability_thres, nms_scores, -1.0)
     k = min(cc.topk_candidates, Ql)
     # top-k with ties in index order (as lax.top_k)
     top_vals, top_idx = torch.sort(nms_scores, descending=True, stable=True)
@@ -161,28 +173,14 @@ def _detect_newly_instance(pool, clip_offset, frames, is_first_clip, logits_l, m
 
     cand2slot, matched_sim = mp.match_candidates_to_memory(pool, c_embds, c_valid, cc.newly_thres)
     matched = (matched_sim > cc.newly_thres) & (cand2slot >= 0) & c_valid
-    slot = cand2slot.clamp(min=0)
     # matched entities take the learnable queries' logits / embds (:609-612)
-    upd_logits = 0.5 * (pool.logits_last[slot] + c_logits)
-    old_emb = pool.embds[slot, -1]
-    nonblank = (old_emb != 0).any(-1)
-    new_emb = (old_emb + c_embds.mean(1)) / (nonblank[:, None].to(torch.float32) + 1.0)
-    mp.scatter_where_(pool.logits_last, cand2slot, upd_logits, matched)
-    last = pool.embds[:, -1].clone()
-    mp.scatter_where_(last, cand2slot, new_emb, matched)
-    pool.embds[:, -1] = last
+    _update_matched(pool, cand2slot, matched, c_logits, c_embds)
     # strong matches also add their masks (:618-629)
     strong = (matched_sim > 2 * cc.newly_thres) & matched
     _accumulate_candidate_masks(pool, clip_offset, c_masks, c_quality, cand2slot, strong)
 
     # newly = unmatched, confident, low overlap with the pool (:641-646)
-    win = pool.mask_logits[:, clip_offset:clip_offset + T]
-    pool_bin = (win > 0).reshape(E, -1).to(torch.float32)
-    cand_bin = (c_masks > 0).reshape(c_masks.shape[0], -1).to(torch.float32)
-    # exact counts: float32 products of 0/1 with float32 accumulation
-    inter = cand_bin @ pool_bin.T
-    union = (cand_bin.sum(-1)[:, None] + pool_bin.sum(-1)[None] - inter).clamp(min=1)
-    miou_max = torch.where(pool.valid[None], inter / union, 0.0).amax(-1)
+    miou_max = _max_iou_with_pool(pool, clip_offset, c_masks)
     conf = c_logits.amax(-1)
     cls_gate = max(cc.apply_cls_thres, 0.1) if is_first_clip else cc.apply_cls_thres
     is_new = c_valid & ~matched & (conf > cls_gate)
@@ -190,6 +188,89 @@ def _detect_newly_instance(pool, clip_offset, frames, is_first_clip, logits_l, m
         is_new = is_new & (miou_max < 0.5)
     mp.admit_entities(pool, clip_offset, frames[0], c_masks, c_logits, c_embds.mean(1),
                       c_quality, is_new)
+
+
+def _rank_within(mask: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """Rank (0 = best) by descending score among ``mask`` members, ties in
+    index order (a stable sort, as ``jnp.argsort``); others 1 << 30."""
+    s = torch.where(mask, scores, -torch.inf)
+    order = torch.argsort(-s, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device)
+    return torch.where(mask, rank, 1 << 30)
+
+
+def _detect_newly_pixel(pool, clip_offset, frames, is_first_clip, logits_l, masks_l, embds_l,
+                        thing_mask, cc: EntityClipConfig):
+    """VPS (panoptic) newly-entity detection (detect_newly_entities_per_
+    clip_pixel, inference_video_entity.py:654-765).  First clip: the
+    score-ranked top 100 split by thing / stuff class, the top 70 things
+    deduped by triu-law box NMS (nms_thres), the top 30 stuff by triu-law
+    frame-0 mask IoU at 0.6, admitted above apply_cls_thres.  Later
+    clips: no NMS; all learnable queries are matched to the pool by the
+    quasi-track law, every match adds its masks / logits / embds, and the
+    unmatched above 2 x apply_cls_thres with mask IoU < 0.5 against the
+    pool are admitted.  (The JAX package computes both branches and
+    selects; on the first clip its matches are all masked off.)"""
+    Ql, K = logits_l.shape
+    dev = logits_l.device
+    q_l = mask_quality_scores(masks_l)
+    scored = logits_l * q_l[:, None]  # [Ql, K]
+    s = scored.amax(-1)
+    all_q = torch.ones((Ql,), dtype=torch.bool, device=dev)
+
+    if is_first_clip:  # (:671-698)
+        if thing_mask is None:
+            thing_mask = torch.ones((K,), dtype=torch.bool, device=dev)
+        isthing = thing_mask.to(dev)[scored.argmax(-1)]
+        in100 = _rank_within(all_q, s) < 100
+        cand_t = _rank_within(isthing & in100, s) < 70
+        cand_s = _rank_within(~isthing & in100, s) < 30
+        H4, W4 = masks_l.shape[-2:]
+        norm = torch.tensor([W4, H4, W4, H4], dtype=torch.float32, device=dev)
+        boxes_t = mask_ops.masks_to_boxes(masks_l > 0) / norm  # [Ql, T, 4]
+        biou = mask_ops.box_iou(boxes_t.transpose(0, 1), boxes_t.transpose(0, 1)).amax(0)
+        keep_t = mask_ops.nms_triu_keep_from_iou(biou, s, cc.nms_thres, cand_t)
+        m0 = masks_l[:, 0] > 0
+        keep_s = mask_ops.nms_triu_keep_from_iou(mask_ops.pairwise_mask_iou(m0, m0), s, 0.6, cand_s)
+        is_new = (keep_t | keep_s) & (s > cc.apply_cls_thres)
+    else:  # (:711-746)
+        cand2slot, matched_sim = mp.match_candidates_to_memory(pool, embds_l, all_q, cc.newly_thres)
+        matched = (matched_sim > cc.newly_thres) & (cand2slot >= 0)
+        _update_matched(pool, cand2slot, matched, scored, embds_l)
+        # every matched candidate adds its masks (:727-740, no 2x gate)
+        _accumulate_candidate_masks(pool, clip_offset, masks_l, q_l, cand2slot, matched)
+        miou_max = _max_iou_with_pool(pool, clip_offset, masks_l)
+        is_new = ~matched & (s > 2 * cc.apply_cls_thres) & (miou_max < 0.5)
+    mp.admit_entities(pool, clip_offset, frames[0], masks_l, scored, embds_l.mean(1), q_l, is_new)
+
+
+def _update_matched(pool, cand2slot, matched, logits, embds):
+    """Matched candidates update their pool slots in place: logits_last
+    becomes the mean of the old and the candidate's, the newest embedding
+    the mean of the old (if non-blank) and the candidate's clip mean."""
+    slot = cand2slot.clamp(min=0)
+    upd_logits = 0.5 * (pool.logits_last[slot] + logits)
+    old_emb = pool.embds[slot, -1]
+    nonblank = (old_emb != 0).any(-1)
+    new_emb = (old_emb + embds.mean(1)) / (nonblank[:, None].to(torch.float32) + 1.0)
+    mp.scatter_where_(pool.logits_last, cand2slot, upd_logits, matched)
+    last = pool.embds[:, -1].clone()
+    mp.scatter_where_(last, cand2slot, new_emb, matched)
+    pool.embds[:, -1] = last
+
+
+def _max_iou_with_pool(pool, clip_offset, masks):
+    """Each candidate's largest mask IoU (logit > 0, over the clip's
+    frames) with a valid pool entity -> [Qc]."""
+    T = masks.shape[1]
+    win = pool.mask_logits[:, clip_offset:clip_offset + T]
+    pool_bin = (win > 0).reshape(pool.capacity, -1).to(torch.float32)
+    cand_bin = (masks > 0).reshape(masks.shape[0], -1).to(torch.float32)
+    # exact counts: float32 products of 0/1 with float32 accumulation
+    inter = cand_bin @ pool_bin.T
+    union = (cand_bin.sum(-1)[:, None] + pool_bin.sum(-1)[None] - inter).clamp(min=1)
+    return torch.where(pool.valid[None], inter / union, 0.0).amax(-1)
 
 
 def _accumulate_candidate_masks(pool, clip_offset, c_masks, c_quality, cand2slot, gate):

@@ -2,10 +2,11 @@
 paths) — counterpart of ``univs_tpu/losses/hungarian.py``.
 
 The JAX package runs this algorithm on the TPU inside its jit.  Here
-the matrices are at most 60 x 25 (pool slots x candidates), so the port
-runs the same algorithm on a host copy of the cost matrix: one
-device->host copy per clip; the assignment returns on the input's
-device.  An on-device version is listed in ROADMAP.md.
+the matrices are at most 60 x 200 (pool slots x candidates: the 25
+top-k candidates of the instance path, all 200 learnable queries of the
+pixel path), so the port runs the same algorithm on a host copy of the
+cost matrix: one device->host copy per clip; the assignment returns on
+the input's device.  An on-device version is listed in ROADMAP.md.
 
 The arithmetic is float32, step for step as in the JAX version
 (potentials, slack, first-index argmin), so the assignment is the same,

@@ -23,7 +23,7 @@ from typing import Dict, Optional
 
 import torch
 
-KERNELS = ("msda_sample", "msda_rows", "fused_ffn_ln")
+KERNELS = ("msda_sample", "msda_rows", "fused_ffn_ln", "msda_tent_base")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -44,6 +44,8 @@ _SIGNATURES = {
     # dtype, x, a, g1, c1, w1_t, b1, w2_t, b2, g2, c2, out, ntok, C, F, eps, stream
     "fused_ffn_ln": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      ctypes.c_float, _P],
+    # dtype, int8, value, dequant, loc, out, N, S, Lq, M, D, P, L, shapes*, stream
+    "msda_tent_base": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
