@@ -32,8 +32,10 @@ non-zero):
               ceil(V / T) clip encodes;
             * ``run_vps`` (VIPSeg, K=124, its 58 thing classes, 60 slots),
               A/B/C at 6 x (window encodes), device and host-stitching time
-              apart, and the first 10 frames with the gates open when the
-              random weights admit no entity at the default ones;
+              apart, and the first 10 frames with the gates open; the host
+              stitching alone on seeded windows of 15 and 60 valid slots
+              (the random weights admit at most one entity), its cost per
+              entity and frame;
   tiny    — each driver path against a reference on a small input: the
             tiny config's ``run_vis`` / ``run_vss`` / ``run_vps`` in float32
             on the card (through the kernels) and on the CPU (plain laws).
@@ -719,14 +721,48 @@ def check_panoptic(pan, info, V, H, W, K) -> bool:
                 and all(1 <= r["category_id"] <= K for r in info))
 
 
+def stitching_at(entities: int, capacity: int, frames: int, K: int, overlap_thr: float, seed: int):
+    """The host stitching (``assemble_vps_results``) alone at full
+    resolution on one seeded window of ``capacity`` slots, the first
+    ``entities`` valid: each a moving rectangle of raw accumulated logits
+    (+3 inside, -3 outside, noise 0.5) at quarter resolution, a class
+    drawn from the K (things and stuff), its score 0.9 against 0.1 noise.
+    The random weights admit at most one entity, so this is where the
+    stitching's cost per entity is read."""
+    from univs_tpu_torch.inference.driver import assemble_vps_results
+
+    rng = np.random.RandomState(seed)
+    (H, W) = FULL_HW
+    h4, w4 = H // 4, W // 4
+    yy, xx = np.mgrid[0:h4, 0:w4]
+    win = np.full((capacity, frames, h4, w4), -8.0, np.float16)
+    for e in range(entities):
+        h, w = rng.uniform(0.1, 0.4) * h4, rng.uniform(0.1, 0.4) * w4
+        y, x, vy, vx = rng.uniform(0, h4 - h), rng.uniform(0, w4 - w), *rng.uniform(-1, 1, 2)
+        for t in range(frames):
+            inside = ((yy >= y + vy * t) & (yy < y + vy * t + h)
+                      & (xx >= x + vx * t) & (xx < x + vx * t + w))
+            win[e, t] = np.where(inside, 3.0, -3.0) + rng.randn(h4, w4) * 0.5
+    scores = (rng.rand(capacity, K) * 0.1).astype(np.float32)
+    scores[np.arange(entities), rng.randint(0, K, entities)] = 0.9
+    valid = np.arange(capacity) < entities
+    t0 = time.perf_counter()
+    pan, info = assemble_vps_results([win], [0], [scores], [valid], frames, VIPSEG_THING_IDS,
+                                     overlap_thr, (H, W), (H, W), (H, W))
+    s = time.perf_counter() - t0
+    return pan, info, {"entities": entities, "frames": frames, "segments": len(info),
+                       "things": sum(r["isthing"] for r in info), "host_stitching_s": s,
+                       "ms_per_entity_frame": s * 1e3 / (entities * frames)}
+
+
 def run_vps_path(model):
     """``EntityDriver.run_vps`` (VIPSeg: K=124, its 58 thing classes, 60
     slots) at full width with the VIS phase's model: three timed runs
     after a warm-up, then one run split into device and host-stitching
-    time; when the random weights admit no entity at the default gates,
-    the first 10 frames again with the class and consistency gates open
-    so that the stitching runs at full resolution.  Returns (ok,
-    launches of the first timed run)."""
+    time; the first 10 frames again with the class and consistency gates
+    open so that the stitching runs at full resolution on what the
+    random weights admit; the stitching alone on seeded windows of 15
+    and 60 valid slots.  Returns (ok, launches of the first timed run)."""
     import dataclasses
 
     import torch
@@ -753,14 +789,18 @@ def run_vps_path(model):
            "things": len(VIPSEG_THING_IDS), "window_encodes": n_enc, "warmup_s": warm_s,
            "run_s": run_s, "fps_runs": [V / t for t in run_s], "segments": len(info),
            "split": split, "launches": launches, "launches_ok": counts_ok}
-    if not info:
-        relaxed = dataclasses.replace(cfg, inference=dataclasses.replace(
-            cfg.inference, apply_cls_thres=0.0, consistency_thres=(-1.0, 0.5)))
-        open_driver = EntityDriver(relaxed, model, num_classes=K, capacity=E)
-        Vo = 10
-        open_pan, open_info, rec["gates_open"] = vps_split(open_driver, video[:Vo], cls_emb)
-        out_ok &= len(open_info) > 0 and check_panoptic(open_pan, open_info, Vo, H, W, K)
-        rec["gates_open"]["things"] = sum(r["isthing"] for r in open_info)
+    relaxed = dataclasses.replace(cfg, inference=dataclasses.replace(
+        cfg.inference, apply_cls_thres=0.0, consistency_thres=(-1.0, 0.5)))
+    open_driver = EntityDriver(relaxed, model, num_classes=K, capacity=E)
+    Vo = 10
+    open_pan, open_info, rec["gates_open"] = vps_split(open_driver, video[:Vo], cls_emb)
+    out_ok &= len(open_info) > 0 and check_panoptic(open_pan, open_info, Vo, H, W, K)
+    rec["gates_open"]["things"] = sum(r["isthing"] for r in open_info)
+    rec["stitching_alone"] = []
+    for n_ent in (15, E):
+        st_pan, st_info, st = stitching_at(n_ent, E, Vo, K, cfg.inference.overlap_threshold, seed=n_ent)
+        out_ok &= len(st_info) > 0 and check_panoptic(st_pan, st_info, Vo, H, W, K)
+        rec["stitching_alone"].append(st)
     rec["outputs_ok"] = out_ok
     emit(rec)
     torch.cuda.empty_cache()

@@ -34,11 +34,12 @@ T, H, W, K = 2, 64, 96, 5
 E, R = 6, 8
 
 
-@pytest.mark.parametrize("kind", ["random", "tied", "wide_invalid_rows"])
+@pytest.mark.parametrize("kind", ["random", "tied", "wide_invalid_rows", "all_invalid_rows"])
 def test_hungarian_matches_jax(kind):
-    rng = np.random.RandomState({"random": 0, "tied": 1, "wide_invalid_rows": 2}[kind])
+    rng = np.random.RandomState(
+        {"random": 0, "tied": 1, "wide_invalid_rows": 2, "all_invalid_rows": 3}[kind])
     for trial in range(6):
-        n, m = (7, 11) if kind != "wide_invalid_rows" else (9, 25)
+        n, m = (7, 11) if kind in ("random", "tied") else (9, 25)
         cost = rng.rand(n, m).astype(np.float32)
         if kind == "tied":
             cost = np.round(cost * 3) / 3  # few distinct values: many ties
@@ -46,6 +47,8 @@ def test_hungarian_matches_jax(kind):
         row_valid = None
         if kind == "wide_invalid_rows":
             row_valid = rng.rand(n) > 0.3
+        if kind == "all_invalid_rows":  # an empty pool: the walk is skipped
+            row_valid = np.zeros(n, bool)
         want = np.asarray(jax_hungarian(jnp.asarray(cost),
                                         None if row_valid is None else jnp.asarray(row_valid)))
         got = hungarian(torch.as_tensor(cost),

@@ -52,15 +52,25 @@ def drivers():
     params = jax.tree.map(np.asarray, params)
     jd = JaxEntityDriver(jcfg, params, num_classes=K, capacity=E, thing_class_ids=THINGS)
     td = EntityDriver(tcfg, state_dict_from_flax(params), num_classes=K, capacity=E,
-                      device="cpu", thing_class_ids=THINGS)
+                      device="cpu", thing_class_ids=THINGS)  # run_vps's default
     video = np.random.RandomState(1).randint(0, 256, (V, H, W, 3)).astype(np.uint8)
     return jd, td, cls_emb, video
 
 
-def test_run_vps_same_panoptic(drivers):
-    jd, td, cls_emb, video = drivers
-    want_pan, want_info = jd.run_vps(video, jnp.asarray(cls_emb), THINGS, IMAGE, OUT)
-    got_pan, got_info = td.run_vps(video, torch.as_tensor(cls_emb), THINGS, IMAGE, OUT)
+@pytest.fixture(scope="module")
+def jax_vps(drivers):
+    jd, _, cls_emb, video = drivers
+    return jd.run_vps(video, jnp.asarray(cls_emb), THINGS, IMAGE, OUT)
+
+
+@pytest.mark.parametrize("things_from", ["argument", "constructor"])
+def test_run_vps_same_panoptic(drivers, jax_vps, things_from):
+    """The thing classes given to ``run_vps`` or, by default, to the
+    driver's constructor."""
+    _, td, cls_emb, video = drivers
+    want_pan, want_info = jax_vps
+    things = THINGS if things_from == "argument" else None
+    got_pan, got_info = td.run_vps(video, torch.as_tensor(cls_emb), things, IMAGE, OUT)
     assert len(want_info) >= 1, "relaxed thresholds must register segments"
     assert got_pan.dtype == np.int32 and got_pan.shape == (V, *OUT)
     np.testing.assert_array_equal(got_pan, want_pan)

@@ -80,8 +80,8 @@ class EntityDriver:
         num_classes: K of the category bank slice
         capacity: entity slots E
         device: None -> the card (raises without one); "cpu" explicitly
-        thing_class_ids: 1-based thing classes of a panoptic dataset
-            (``run_vps`` takes its own)
+        thing_class_ids: 1-based thing classes of a panoptic dataset,
+            ``run_vps``'s default
     """
 
     def __init__(self, cfg: UniVSConfig, params=None, num_classes: int = 1, capacity: int = 40,
@@ -95,7 +95,7 @@ class EntityDriver:
         self.dtype = compute_dtype_of(cfg)
         self.num_classes = num_classes
         self.capacity = capacity
-        self.thing_class_ids = set(thing_class_ids or [])
+        self.thing_class_ids = None if thing_class_ids is None else tuple(thing_class_ids)
         inf = cfg.inference
         self.T = inf.num_frames
         self.stride = inf.clip_stride
@@ -168,17 +168,18 @@ class EntityDriver:
     def num_window_encodes(self, V: int) -> int:
         return sum(c["new_window"] is not None for c in self._iter_clips(V))
 
-    def _emit(self, pool: mp.EntityMemory, out_frames: int):
-        """Copies of the first ``out_frames`` window frames, fp16: divided
-        by occurrence (VIS, save_results_vis:931) and raw (VPS,
+    def _emit(self, pool: mp.EntityMemory, out_frames: int, divide: bool):
+        """A copy of the first ``out_frames`` window frames, fp16, divided
+        by occurrence (VIS, save_results_vis:931) or raw (VPS,
         save_results_vps:984); the per-window class-score snapshot
-        (logits-history mean, :926); a snapshot of ``valid``, which the
-        pool's later in-place updates would change."""
-        raw = pool.mask_logits[:, :out_frames]
-        occ = pool.occurrence[:, :out_frames].clamp(min=1.0)
-        divided = (raw / occ[:, :, None, None]).to(torch.float16)
+        (logits-history mean, :926); for VPS a snapshot of ``valid``,
+        which the pool's later in-place updates would change (VIS reads
+        the final ``valid``)."""
+        win = pool.mask_logits[:, :out_frames]
+        if divide:
+            win = win / pool.occurrence[:, :out_frames].clamp(min=1.0)[:, :, None, None]
         scores = pool.logits_sum / pool.logits_count.clamp(min=1)[:, None]
-        return divided, raw.to(torch.float16), scores, pool.valid.clone()
+        return win.to(torch.float16), scores, None if divide else pool.valid.clone()
 
     @torch.no_grad()
     def _dispatch(self, frames, cls_emb, divide: bool, thing_mask=None, next_frames=None) -> Dict:
@@ -222,11 +223,12 @@ class EntityDriver:
             for start, n_out in c["emits"]:
                 # emit + evict exactly n_out frames: the trailing T overlap
                 # frames stay in the pool and keep accumulating
-                divided, raw, scores, valid = self._emit(pool, n_out)
+                win, scores, valid = self._emit(pool, n_out, divide)
                 mp.evict_window(pool, n_out)
-                emitted.append(divided if divide else raw)
+                emitted.append(win)
                 emit_scores.append(scores)
-                emit_valids.append(valid)
+                if valid is not None:
+                    emit_valids.append(valid)
                 emit_starts.append(start)
             if not c["is_last"]:
                 mp.shift_clip(pool, self.stride)
@@ -335,12 +337,16 @@ class EntityDriver:
             labels[i:i + Tc] = _resize_labels_nearest(sem.cpu().numpy(), out_size)
         return labels
 
-    def run_vps(self, frames, cls_emb, thing_class_ids, image_size=None, out_size=None):
+    def run_vps(self, frames, cls_emb, thing_class_ids=None, image_size=None, out_size=None):
         """VPS: entity tracking with the pixel newly-entity variant, raw
         (undivided) windows of every slot, then the panoptic stitching on
         the host (``assemble_vps_results``).  ``thing_class_ids`` are
-        1-based.  Returns (panoptic [V, out_h, out_w] int32 segment ids,
-        segments_info list)."""
+        1-based; None takes the constructor's.  Returns (panoptic [V,
+        out_h, out_w] int32 segment ids, segments_info list)."""
+        if thing_class_ids is None:
+            thing_class_ids = self.thing_class_ids
+        if thing_class_ids is None:
+            raise ValueError("run_vps needs thing_class_ids, here or in the constructor")
         V, H, W = frames.shape[:3]
         image_size = tuple(image_size or (H, W))
         out_size = tuple(out_size or image_size)

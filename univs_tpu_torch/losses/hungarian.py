@@ -68,7 +68,14 @@ def hungarian_numpy(cost: np.ndarray, row_valid: Optional[np.ndarray] = None) ->
 
 def hungarian(cost: torch.Tensor, row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Minimum-cost row -> column assignment: [N, M] (N <= M) ->
-    col4row [N] int64 on ``cost``'s device (-1 for invalid rows)."""
+    col4row [N] int64 on ``cost``'s device (-1 for invalid rows).
+
+    With no valid row the answer is all -1 whatever the walk does, so
+    the walk and the cost's host copy are skipped (an empty entity pool:
+    its N zero-cost rows tie on every column and would take N(N+1)/2
+    phases)."""
     rv = None if row_valid is None else row_valid.detach().cpu().numpy()
+    if rv is not None and not rv.any():
+        return torch.full((cost.shape[0],), -1, dtype=torch.int64, device=cost.device)
     out = hungarian_numpy(cost.detach().to(torch.float32).cpu().numpy(), rv)
     return torch.as_tensor(out, device=cost.device)
