@@ -14,9 +14,19 @@ non-zero):
             value dtype), and the whole ``ms_deform_attn`` op with
             ``impl='tent-int8'`` (quantisation included) beside
             ``impl='tent'`` (kernel A), each against the float32 law;
+            kernels E (the point-summed tent plane: psum / outer, whole
+            level / y-window) and F (the separable tent probe laws: kernel,
+            base, b16t1, b16all, exp, exp-b16) at the probes' geometry (the
+            1/8 level, 5 frames, 8 heads, 4 points, D=32; bf16 timed, and
+            float32) and at a tiny shape; F and D bit-exact;
   paths   — each path driven with the launch counts set to 0 just before
             and read just after, every kernel's count equal to the path's
             expectation:
+            * the tools probes: the runners of the five ported probes of
+              ``tools/`` (``univs_tpu_torch.tools.probe_tent_*.run``) at
+              their own geometry, kernels E and F beside kernel A on the
+              same inputs, each formulation's error against the float32
+              law within its tolerance;
             * the MSDA op's tent entry points at the encoder's shape
               (``impl='tent-int8'`` and ``level_impl='base'`` -> kernel D,
               ``impl='tent'`` -> kernel A);
@@ -82,13 +92,11 @@ REPLACES = {
     "msda_sample": "univs_tpu/ops/deformable_attention.py:411 and :490",
     "fused_ffn_ln": "univs_tpu/ops/fused_mlp.py:27",
     "msda_tent_base": "univs_tpu/ops/deformable_attention.py:276",
+    "msda_tent_plane": "tools/probe_tent_psum.py:59 and :105, tools/probe_tent_outer.py:39 and :92",
+    "msda_tent_probe": "tools/probe_tent_kernel.py:42, tools/probe_tent_variants.py:43, "
+                       "tools/probe_tent_v5.py:64",
 }
-SOURCES = {
-    "msda_rows": "univs_tpu_torch/csrc/msda_rows.cu",
-    "msda_sample": "univs_tpu_torch/csrc/msda_sample.cu",
-    "fused_ffn_ln": "univs_tpu_torch/csrc/fused_ffn_ln.cu",
-    "msda_tent_base": "univs_tpu_torch/csrc/msda_tent_base.cu",
-}
+SOURCES = {k: f"univs_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 
 
 def log(msg: str) -> None:
@@ -175,8 +183,14 @@ def nbytes(*ts) -> int:
 #    bf16 output rounds once -> 1e-4 (f32), 1e-2 (bf16: ~2 ulp);
 #  - ffn: the bf16 hidden activation and output round once each -> 1e-4
 #    (f32), 2e-2 (bf16: ~4 ulp of the largest output).
+#  - tent_plane: the plane is the same to the bit, its product with the
+#    value sums in another order (mma vs cuBLAS) -> 1e-4 (f32 output);
+#  - tent_base, tent_probe: the plain versions repeat the kernels' rounding
+#    order, so they must agree to the bit (``exact``).
 TOL = {"msda_rows": (1e-4, 1e-4), "msda_sample": (1e-4, 1e-2), "fused_ffn_ln": (1e-4, 2e-2),
-       "msda_tent_base": (1e-4, 1e-2)}
+       "msda_tent_base": (1e-4, 1e-2), "msda_tent_plane": (1e-4, 1e-4),
+       "msda_tent_probe": (0.0, 0.0)}
+EXACT = ("msda_tent_base", "msda_tent_probe")
 
 
 def kernel_checks(results: dict) -> bool:
@@ -240,11 +254,13 @@ def kernel_checks(results: dict) -> bool:
             scales = [float(w.float().abs().max()) for _, w in parts]
             finite = bool(torch.isfinite(got.float()).all())
             tol = TOL[name.split("/")[0]][int(is_bf16)]
-            passed = finite and all(e <= tol * max(s, 1e-6) for e, s in zip(errs, scales))
+            exact = bool(torch.equal(got, want))
+            passed = (finite and all(e <= tol * max(s, 1e-6) for e, s in zip(errs, scales))
+                      and (exact or name.split("/")[0] not in EXACT))
             ok &= passed
             rec = {"check": name, "case": case, "dtype": str(dtype).replace("torch.", ""),
                    "frames": n, "max_abs_err": max(errs), "ref_max_abs": max(scales),
-                   "tol_rel": tol, "pass": passed}
+                   "tol_rel": tol, "exact": exact, "pass": passed}
             if name == "msda_rows":
                 rec.update(xy_max_abs_err=errs[0], xy_ref_max_abs=scales[0],
                            w_max_abs_err=errs[1], w_ref_max_abs=scales[1])
@@ -320,6 +336,183 @@ def bound_of(name, x, inputs, out):
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": byts, "ops": ops}
+
+
+# the probes' geometry (tools/probe_tent_*.py): the 1/8 level of 640x960,
+# 5 frames, 8 heads, 4 points, D=32; E's window of 16 rows (a height both
+# psum and outer sweep there) over chunks of 512 queries in blocks of 2048;
+# a tiny shape beside it
+PROBE_CASES = {
+    "probe": dict(shapes=((80, 120), (40, 60), (20, 30)), M=8, P=4, N=5, D=32, Hw=16, bqq=2048,
+                  subq=512, Lq=12600),
+    "tiny": dict(shapes=((16, 12), (8, 6)), M=2, P=2, N=1, D=8, Hw=8, bqq=64, subq=64, Lq=20),
+}
+
+
+def plane_inputs(case, dtype):
+    """Kernel E's inputs: the psum probe's rows and raster slab of the
+    first (largest) level, and the window meta."""
+    import torch
+
+    from univs_tpu_torch.ops import msda_probes
+    from univs_tpu_torch.tools import probe_tent_psum
+
+    c = PROBE_CASES[case]
+    slab, rows, RQ, (H, W), _, _ = probe_tent_psum.level_inputs(
+        c["shapes"], 0, c["M"], c["P"], c["N"], c["D"], np.random.RandomState(1),
+        torch.device("cuda"), dtype, c["bqq"])
+    meta = msda_probes.window_meta(rows, c["M"], c["P"], H, W, c["Hw"], c["bqq"], c["subq"])
+    return dict(c, slab=slab, rows=rows, RQ=RQ, H=H, W=W, meta=meta)
+
+
+def tent_probe_inputs(case, dtype):
+    """Kernel F's inputs on the first level of the case: one value in the
+    d-major and the j-major slab, and uniform samples a little past every
+    edge."""
+    import torch
+
+    c = PROBE_CASES[case]
+    (H, W), N, M, D = c["shapes"][0], c["N"], c["M"], c["D"]
+    R = c["Lq"] * c["P"]
+    rng = np.random.RandomState(0)
+    v = torch.as_tensor(rng.randn(N, M, H, W, D).astype(np.float32)).to(dtype).cuda()
+    f32 = [torch.as_tensor(a.astype(np.float32)).cuda() for a in (
+        rng.uniform(-1.5, W + 0.5, (N, R, M)), rng.uniform(-1.5, H + 0.5, (N, R, M)),
+        rng.rand(N, R, M))]
+    return dict(c, H=H, W=W, R=R, xs=f32[0], ys=f32[1], was=f32[2],
+                dmajor=v.permute(0, 1, 3, 4, 2).reshape(N, M, W, D * H).contiguous(),
+                jmajor=v.permute(0, 1, 3, 2, 4).reshape(N, M, W, H * D).contiguous())
+
+
+def probe_bound(inputs, out, ops) -> dict:
+    """The function's minimal work, as kernel A's (one level): each input
+    read once, the output written once, ``ops`` float32 operations."""
+    byts = nbytes(*inputs, out)
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": byts, "ops": ops}
+
+
+def plane_work(x, window: bool) -> dict:
+    """Kernel E's own algorithmic work: the plane entries it visits (the
+    window's rows where a chunk hits, the whole level elsewhere), their
+    product with the value on the tensor cores, and the law's products
+    and sums per entry and point (2P; the narrow tents are negligible)."""
+    S = x["H"] * x["W"]
+    if window:
+        k = np.where(x["meta"][..., 1].cpu().numpy() == 1, x["Hw"] * x["W"], S)
+        entries = float(k.sum()) * x["subq"]
+    else:
+        entries = float(x["N"] * x["M"] * x["rows"].shape[1] * S)
+    tensor = 2.0 * entries * x["D"]
+    build = 2.0 * x["P"] * entries
+    return {"plane_entries": entries, "plane_tensor_flops": tensor, "plane_build_ops": build,
+            "plane_tensor_ms_at_peak": tensor / BF16_TENSOR_FLOPS * 1e3,
+            "plane_build_ms_at_f32_peak": build / F32_FLOPS * 1e3}
+
+
+def probe_kernel_checks(results: dict) -> bool:
+    """Kernels E (four modes) and F (six laws) against their plain
+    versions on the card at the probes' geometry (bf16, timed, and
+    float32) and at a tiny shape; fills ``results`` with the timed
+    numbers (``msda_tent_plane`` = psum over the whole level,
+    ``msda_tent_probe`` = the base law, the others under
+    ``<kernel>/<mode>``).  Returns True when all agree."""
+    import torch
+
+    from univs_tpu_torch.ops import msda_probes as mp
+
+    ok = True
+    for case, dtype in (("probe", torch.bfloat16), ("probe", torch.float32),
+                        ("tiny", torch.float32), ("tiny", torch.bfloat16)):
+        is_bf16 = dtype == torch.bfloat16
+        timed = case == "probe" and is_bf16
+        e, f = plane_inputs(case, dtype), tent_probe_inputs(case, dtype)
+        calls = {}
+        for mode in mp.PLANE_MODES:
+            for window in (False, True):
+                kw = dict(meta=e["meta"], Hw=e["Hw"], subq=e["subq"]) if window else {}
+                name = "msda_tent_plane" + ("" if (mode, window) == ("psum", False) else
+                                            f"/{mode}{'-win' if window else ''}")
+                calls[name] = (
+                    lambda mode=mode, kw=kw: mp.msda_tent_plane_cuda(
+                        e["slab"], e["rows"], e["RQ"], e["W"], e["P"], mode, **kw),
+                    lambda mode=mode: mp.msda_tent_plane_plain(
+                        e["slab"], e["rows"], e["RQ"], e["W"], e["P"], mode),
+                    (e["slab"], e["rows"]) + ((e["meta"],) if window else ()),
+                    2.0 * e["N"] * e["RQ"] * e["M"] * e["P"] * 4 * e["D"], window)
+        for law, (use_wa, *_) in mp.PROBE_LAWS.items():
+            layout = "jmajor" if law.startswith("exp") else "dmajor"
+            group = f["P"] if use_wa else 1
+            args = (f[layout], f["xs"], f["ys"], f["was"] if use_wa else None, f["D"], group, law,
+                    layout)
+            calls["msda_tent_probe" + ("" if law == "base" else f"/{law}")] = (
+                lambda args=args: mp.msda_tent_probe_cuda(*args),
+                lambda args=args: mp.msda_tent_probe_plain(*args),
+                tuple(a for a in args[:4] if a is not None),
+                2.0 * f["N"] * f["R"] * f["M"] * 4 * f["D"], None)
+        for name, (kern, plain, inputs, ops, window) in calls.items():
+            base = name.split("/")[0]
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            exact = bool(torch.equal(got, want))
+            tol = TOL[base][int(is_bf16)]
+            passed = (bool(torch.isfinite(got).all()) and err <= tol * max(scale, 1e-6)
+                      and (exact or base not in EXACT))
+            ok &= passed
+            rec = {"check": name, "case": case, "dtype": str(dtype).replace("torch.", ""),
+                   "frames": e["N"] if base == "msda_tent_plane" else f["N"],
+                   "max_abs_err": err, "ref_max_abs": scale, "tol_rel": tol, "exact": exact,
+                   "pass": passed}
+            if window is not None:
+                rec.update(plane_work(e, window), window_hit=float(e["meta"][..., 1].float().mean())
+                           if window else None)
+            if timed:
+                rec["kernel_ms"] = time_cuda(kern, iters=10)
+                rec["plain_ms"] = time_cuda(plain, iters=2, warmup=1)
+                rec.update(probe_bound(inputs, got, ops))
+                results[name] = rec
+            emit(rec)
+            del got, want
+        del e, f, calls
+        torch.cuda.empty_cache()
+    return ok
+
+
+def run_probe_path():
+    """The tools probes: each ported probe's runner at its geometry (5
+    frames, bf16) on the card, with the launch counts set to 0 just
+    before and read after all five; each record's kernel calls make the
+    expectation (kernel E for psum / outer, F for kernel / variants / v5,
+    A beside each level).  Returns (ok, launches)."""
+    from univs_tpu_torch.tools import (probe_tent_kernel, probe_tent_outer, probe_tent_psum,
+                                       probe_tent_v5, probe_tent_variants)
+
+    runners = {"probe_tent_psum": probe_tent_psum.run, "probe_tent_outer": probe_tent_outer.run,
+               "probe_tent_kernel": probe_tent_kernel.run,
+               "probe_tent_variants": probe_tent_variants.run, "probe_tent_v5": probe_tent_v5.run}
+    records, launches = counted(lambda: [dict(r, runner=name) for name, run in runners.items()
+                                         for r in run()])
+    expected = expected_launches()
+    for r in records:
+        expected[r["kernel"]] += r["calls"]
+    counts_ok = check_launches("tools probes", launches, expected)
+    counts_ok &= launches["msda_tent_plane"] > 0 and launches["msda_tent_probe"] > 0
+    for r in records:
+        emit(dict(r, path="tools probes"))
+    out_ok = all(r["pass"] for r in records)
+    # the card's reading: each formulation's ms per probe and level, kernel A beside it
+    reading = {}
+    for r in records:
+        key = f"{r['probe']} {r['level'][0]}x{r['level'][1]}"
+        label = r["formulation"] + (f" Hw={r['Hw']}" if r.get("hit") is not None else "")
+        reading.setdefault(key, {})[label] = r["ms"]
+    emit({"path": "tools probes", "records": len(records), "ms_by_probe_level": reading,
+          "launches_ok": counts_ok, "outputs_ok": out_ok})
+    return counts_ok and out_ok, launches
 
 
 def check_results(results, V, H, W, capacity, K) -> bool:
@@ -834,7 +1027,10 @@ def main() -> int:
 
     results: dict = {}
     ok = kernel_checks(results)
+    ok &= probe_kernel_checks(results)
     by_path = {}
+    path_ok, by_path["tools probes"] = run_probe_path()
+    ok &= path_ok
     path_ok, by_path["ms_deform_attn"] = run_op_path(results)
     ok &= path_ok
     path_ok, by_path["run_vis"], vis_driver = run_main_path()
@@ -860,10 +1056,13 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
         }
-        if name == "msda_tent_base":  # the row is the int8 slab; the dtype mode beside it
-            d = results["msda_tent_base/dtype"]
-            row["dtype_mode"] = {"ms": d["kernel_ms"], "plain_ms": d["plain_ms"],
-                                 "bound_ms": d["bound_ms"], "max_abs_err": d["max_abs_err"]}
+        # the row is one mode (D: the int8 slab; E: psum over the whole
+        # level; F: the base law); the kernel's other modes beside it
+        modes = {k.split("/", 1)[1]: {"ms": d["kernel_ms"], "plain_ms": d["plain_ms"],
+                                      "bound_ms": d["bound_ms"], "max_abs_err": d["max_abs_err"]}
+                 for k, d in results.items() if k.startswith(name + "/")}
+        if modes:
+            row["modes"] = modes
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

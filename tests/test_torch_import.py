@@ -1,7 +1,7 @@
 """The port stands alone: ``univs_tpu_torch`` and every submodule import
-with JAX blocked, no module of the package imports ``univs_tpu``,
-``jax`` or ``flax``, and the entry points refuse to run on the CPU unless
-the caller asks for it."""
+with JAX and the repository's ``tools`` blocked, no module of the package
+imports ``univs_tpu``, ``jax``, ``flax`` or ``tools``, and the entry
+points refuse to run on the CPU unless the caller asks for it."""
 
 import ast
 import os
@@ -23,7 +23,7 @@ from univs_tpu_torch.ops import kernels
 torch.set_num_threads(1)
 
 PKG = pathlib.Path(univs_tpu_torch.__file__).parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "univs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "univs_tpu", "tools")
 
 
 def test_package_imports_with_jax_blocked():

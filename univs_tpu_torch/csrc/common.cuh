@@ -51,6 +51,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
+// The bilinear weight of integer coordinate i for a sample at c,
+// max(1 - |i - c|, 0), each step rounded on its own (nvcc would otherwise
+// be free to contract); the tent kernels D, E and F share it.
+__device__ __forceinline__ float tent(float i, float c) {
+  return fmaxf(__fsub_rn(1.f, fabsf(__fsub_rn(i, c))), 0.f);
+}
+
 // four consecutive elements (16-byte aligned for float, 8 for bf16)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);

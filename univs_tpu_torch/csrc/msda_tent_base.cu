@@ -38,11 +38,6 @@
 
 namespace univs {
 
-// max(1 - |i - c|, 0), each step rounded on its own
-__device__ __forceinline__ float tent(float i, float c) {
-  return fmaxf(__fsub_rn(1.f, fabsf(__fsub_rn(i, c))), 0.f);
-}
-
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 

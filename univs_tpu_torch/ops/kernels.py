@@ -23,7 +23,8 @@ from typing import Dict, Optional
 
 import torch
 
-KERNELS = ("msda_sample", "msda_rows", "fused_ffn_ln", "msda_tent_base")
+KERNELS = ("msda_sample", "msda_rows", "fused_ffn_ln", "msda_tent_base", "msda_tent_plane",
+           "msda_tent_probe")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -46,6 +47,10 @@ _SIGNATURES = {
                      ctypes.c_float, _P],
     # dtype, int8, value, dequant, loc, out, N, S, Lq, M, D, P, L, shapes*, stream
     "msda_tent_base": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # dtype, outer, slab, rows, meta, out, N, Qp, RQ, M, P, H, W, D, subq, Hw, stream
+    "msda_tent_plane": [_I, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    # dtype, round_bf16, slab, xs, ys, was, out, N, R, M, H, W, D, G, dmajor, flags, stream
+    "msda_tent_probe": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
 }
 
 
