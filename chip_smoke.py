@@ -115,22 +115,6 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def time_cuda(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call over ``iters`` calls (CUDA events)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
 # ---------------------------------------------------------------------------
 # kernel inputs at a given geometry (seeded, on the card)
 # ---------------------------------------------------------------------------
@@ -179,18 +163,17 @@ def nbytes(*ts) -> int:
 #    summation order differs -> 1e-4 in both dtypes, the x / y lanes
 #    (pixel coordinates) and the weight lanes each against their own
 #    magnitude;
-#  - sample, tent_base: float32 accumulation of identical products; a
-#    bf16 output rounds once -> 1e-4 (f32), 1e-2 (bf16: ~2 ulp);
+#  - sample: float32 accumulation of identical products; a bf16 output
+#    rounds once -> 1e-4 (f32), 1e-2 (bf16: ~2 ulp);
 #  - ffn: the bf16 hidden activation and output round once each -> 1e-4
 #    (f32), 2e-2 (bf16: ~4 ulp of the largest output).
 #  - tent_plane: the plane is the same to the bit, its product with the
 #    value sums in another order (mma vs cuBLAS) -> 1e-4 (f32 output);
 #  - tent_base, tent_probe: the plain versions repeat the kernels' rounding
-#    order, so they must agree to the bit (``exact``).
+#    order, so they must agree to the bit -> 0.
 TOL = {"msda_rows": (1e-4, 1e-4), "msda_sample": (1e-4, 1e-2), "fused_ffn_ln": (1e-4, 2e-2),
-       "msda_tent_base": (1e-4, 1e-2), "msda_tent_plane": (1e-4, 1e-4),
+       "msda_tent_base": (0.0, 0.0), "msda_tent_plane": (1e-4, 1e-4),
        "msda_tent_probe": (0.0, 0.0)}
-EXACT = ("msda_tent_base", "msda_tent_probe")
 
 
 def kernel_checks(results: dict) -> bool:
@@ -202,6 +185,7 @@ def kernel_checks(results: dict) -> bool:
 
     from univs_tpu_torch.ops import deformable_attention as da
     from univs_tpu_torch.ops import fused_mlp, msda_rows
+    from univs_tpu_torch.tools import time_ms
 
     ok = True
     cases = [
@@ -254,19 +238,17 @@ def kernel_checks(results: dict) -> bool:
             scales = [float(w.float().abs().max()) for _, w in parts]
             finite = bool(torch.isfinite(got.float()).all())
             tol = TOL[name.split("/")[0]][int(is_bf16)]
-            exact = bool(torch.equal(got, want))
-            passed = (finite and all(e <= tol * max(s, 1e-6) for e, s in zip(errs, scales))
-                      and (exact or name.split("/")[0] not in EXACT))
+            passed = finite and all(e <= tol * max(s, 1e-6) for e, s in zip(errs, scales))
             ok &= passed
             rec = {"check": name, "case": case, "dtype": str(dtype).replace("torch.", ""),
                    "frames": n, "max_abs_err": max(errs), "ref_max_abs": max(scales),
-                   "tol_rel": tol, "exact": exact, "pass": passed}
+                   "tol_rel": tol, "pass": passed}
             if name == "msda_rows":
                 rec.update(xy_max_abs_err=errs[0], xy_ref_max_abs=scales[0],
                            w_max_abs_err=errs[1], w_ref_max_abs=scales[1])
             if timed:
-                rec["kernel_ms"] = time_cuda(kern, iters=10)
-                rec["plain_ms"] = time_cuda(plain, iters=3, warmup=1)
+                rec["kernel_ms"] = time_ms(kern, "cuda", iters=10)
+                rec["plain_ms"] = time_ms(plain, "cuda", iters=3, warmup=1)
                 results[name] = dict(rec, **bound_of(name.split("/")[0], x, inputs, got))
             emit(rec)
             del got, want
@@ -294,6 +276,7 @@ def op_timing(value, shapes, loc, results) -> bool:
     import torch
 
     from univs_tpu_torch.ops import deformable_attention as da
+    from univs_tpu_torch.tools import time_ms
 
     sl, aw = rows_to_locations(shapes, loc)
     exact = da.msda_sample_plain(value.float(), shapes, da.locations_to_rows(shapes, sl, aw))
@@ -305,7 +288,7 @@ def op_timing(value, shapes, loc, results) -> bool:
         out = fn()
         rec[f"{impl}_max_abs_err_vs_f32_law"] = float((out.float() - exact).abs().max())
         rec[f"{impl}_mean_abs_err_vs_f32_law"] = float((out.float() - exact).abs().mean())
-        rec[f"{impl}_ms"] = time_cuda(fn, iters=10)
+        rec[f"{impl}_ms"] = time_ms(fn, "cuda", iters=10)
     # int8: ~|v|_max / 127 per sample (tests/test_ops.py:108's bound);
     # tent: one bf16 rounding of the output
     passed = (rec["tent-int8_max_abs_err_vs_f32_law"] <= 0.05 * scale
@@ -386,7 +369,9 @@ def tent_probe_inputs(case, dtype):
 
 def probe_bound(inputs, out, ops) -> dict:
     """The function's minimal work, as kernel A's (one level): each input
-    read once, the output written once, ``ops`` float32 operations."""
+    the output depends on read once (E: the RQ query rows, not the padded
+    ones or the window meta), the output written once, ``ops`` float32
+    operations."""
     byts = nbytes(*inputs, out)
     t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -421,6 +406,7 @@ def probe_kernel_checks(results: dict) -> bool:
     import torch
 
     from univs_tpu_torch.ops import msda_probes as mp
+    from univs_tpu_torch.tools import time_ms
 
     ok = True
     for case, dtype in (("probe", torch.bfloat16), ("probe", torch.float32),
@@ -439,7 +425,7 @@ def probe_kernel_checks(results: dict) -> bool:
                         e["slab"], e["rows"], e["RQ"], e["W"], e["P"], mode, **kw),
                     lambda mode=mode: mp.msda_tent_plane_plain(
                         e["slab"], e["rows"], e["RQ"], e["W"], e["P"], mode),
-                    (e["slab"], e["rows"]) + ((e["meta"],) if window else ()),
+                    (e["slab"], e["rows"][:, :e["RQ"]]),
                     2.0 * e["N"] * e["RQ"] * e["M"] * e["P"] * 4 * e["D"], window)
         for law, (use_wa, *_) in mp.PROBE_LAWS.items():
             layout = "jmajor" if law.startswith("exp") else "dmajor"
@@ -458,21 +444,18 @@ def probe_kernel_checks(results: dict) -> bool:
             want = plain()
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
-            exact = bool(torch.equal(got, want))
             tol = TOL[base][int(is_bf16)]
-            passed = (bool(torch.isfinite(got).all()) and err <= tol * max(scale, 1e-6)
-                      and (exact or base not in EXACT))
+            passed = bool(torch.isfinite(got).all()) and err <= tol * max(scale, 1e-6)
             ok &= passed
             rec = {"check": name, "case": case, "dtype": str(dtype).replace("torch.", ""),
                    "frames": e["N"] if base == "msda_tent_plane" else f["N"],
-                   "max_abs_err": err, "ref_max_abs": scale, "tol_rel": tol, "exact": exact,
-                   "pass": passed}
+                   "max_abs_err": err, "ref_max_abs": scale, "tol_rel": tol, "pass": passed}
             if window is not None:
                 rec.update(plane_work(e, window), window_hit=float(e["meta"][..., 1].float().mean())
                            if window else None)
             if timed:
-                rec["kernel_ms"] = time_cuda(kern, iters=10)
-                rec["plain_ms"] = time_cuda(plain, iters=2, warmup=1)
+                rec["kernel_ms"] = time_ms(kern, "cuda", iters=10)
+                rec["plain_ms"] = time_ms(plain, "cuda", iters=2, warmup=1)
                 rec.update(probe_bound(inputs, got, ops))
                 results[name] = rec
             emit(rec)
@@ -762,6 +745,7 @@ def run_main_path():
     from univs_tpu_torch.inference import memory_pool as mp
     from univs_tpu_torch.inference.driver import EntityDriver
     from univs_tpu_torch.inference.entity import entity_clip_step
+    from univs_tpu_torch.tools import time_ms
 
     cfg = UniVSConfig(dtype="bfloat16")
     (H, W), V, K = FULL_HW, MAIN_PATH_FRAMES, 40
@@ -806,7 +790,7 @@ def run_main_path():
     # stage times outside the counted run
     frames_d = torch.as_tensor(video).cuda()
     window = frames_d[:driver.window]
-    encode_ms = time_cuda(lambda: driver.encode_window(window), iters=3, warmup=1)
+    encode_ms = time_ms(lambda: driver.encode_window(window), "cuda", iters=3, warmup=1)
     mf, ms = driver.encode_window(window)
     T = driver.T
     feats = (mf[:T], tuple(m[:T] for m in ms))
@@ -817,9 +801,9 @@ def run_main_path():
     cls_d = cls_emb.cuda()
     with torch.no_grad():
         entity_clip_step(driver._modules, feats, pool, list(range(T)), 0, True, cls_d, driver.cc)
-        clip_ms = time_cuda(lambda: entity_clip_step(driver._modules, feats, pool,
-                                                     list(range(1, T + 1)), 1, False, cls_d,
-                                                     driver.cc), iters=10)
+        clip_ms = time_ms(lambda: entity_clip_step(driver._modules, feats, pool,
+                                                   list(range(1, T + 1)), 1, False, cls_d,
+                                                   driver.cc), "cuda", iters=10)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     emit({"path": "EntityDriver.run_vis", "config": "UniVS-R50 VIS, bf16",

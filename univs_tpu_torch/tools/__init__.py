@@ -39,21 +39,22 @@ WARMUP, ITERS = 2, 10
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
-def time_ms(fn: Callable, device: torch.device) -> Optional[float]:
-    """Mean ms per call of ``fn`` over ``ITERS`` calls after ``WARMUP``
+def time_ms(fn: Callable, device, iters: int = ITERS, warmup: int = WARMUP) -> Optional[float]:
+    """Mean ms per call of ``fn`` over ``iters`` calls after ``warmup``
     (CUDA events); None off the card."""
+    device = torch.device(device)
     if device.type != "cuda":
         return None
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize(device)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(ITERS):
+    for _ in range(iters):
         fn()
     b.record()
     torch.cuda.synchronize(device)
-    return a.elapsed_time(b) / ITERS
+    return a.elapsed_time(b) / iters
 
 
 def loc_from_qmajor(rows: torch.Tensor, RQ: int, M: int, P: int) -> torch.Tensor:

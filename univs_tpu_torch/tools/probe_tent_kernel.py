@@ -33,8 +33,9 @@ N, M, D, P = 5, 8, 32, 4
 def msda_tent(v_xmajor, xs, ys, *, bq=None, head_dim=D):
     """v_xmajor [N, M, W, D*H] (d-major: element (i; d*H + j) = V[j, i, d]),
     xs / ys [N, R4, M] float32 pixel coordinates -> [N, R4, M, D] float32
-    samples, zero padding by the tent.  ``bq`` tiles the TPU kernel (R4
-    must be a multiple of it)."""
+    samples, zero padding by the tent.  ``bq`` is the TPU kernel's tile,
+    kept for parity with the JAX probe: R4 must be a multiple of it, and
+    it does not change the result (nothing here to tune)."""
     if bq is not None and xs.shape[1] % bq:
         raise ValueError(f"msda_tent: {xs.shape[1]} rows are not a multiple of {bq}")
     return msda_probes.msda_tent_probe(v_xmajor, xs, ys, None, head_dim, 1, "kernel", "dmajor")

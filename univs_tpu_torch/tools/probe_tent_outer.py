@@ -36,7 +36,10 @@ WINDOWS = {0: (16, 20), 1: (8, 20)}
 
 def msda_outer2d(slab_raster, rows, RQ, D, P, W, *, bqq=2048, subq=512):
     """slab_raster [N, M, S, D] float32 / bfloat16, rows [N, Qp, 3*M*P]
-    float32 (``rows_qmajor``) -> [N, RQ, M, D] float32."""
+    float32 (``rows_qmajor``) -> [N, RQ, M, D] float32.  ``bqq`` and
+    ``subq`` are the TPU kernel's tiles, kept for parity with the JAX
+    probe: Qp must be a multiple of ``bqq``, and neither changes the
+    result (nothing here to tune)."""
     if rows.shape[1] % bqq:
         raise ValueError(f"msda_outer2d: {rows.shape[1]} rows are not a multiple of {bqq}")
     return msda_probes.msda_tent_plane(slab_raster, rows, RQ, W, P, "outer")

@@ -33,7 +33,9 @@ WINDOWS = {0: (8, 16, 24), 1: (8, 16)}
 def msda_psum2d(slab_raster, rows, RQ, D, P, W, *, bqq=2048, subq=512):
     """slab_raster [N, M, S, D] float32 / bfloat16, rows [N, Qp, 3*M*P]
     float32 (``rows_qmajor``) -> [N, RQ, M, D] float32.  ``bqq`` and
-    ``subq`` tile the TPU kernel; Qp must be a multiple of ``bqq``."""
+    ``subq`` are the TPU kernel's tiles, kept for parity with the JAX
+    probe: Qp must be a multiple of ``bqq``, and neither changes the
+    result (nothing here to tune)."""
     if rows.shape[1] % bqq:
         raise ValueError(f"msda_psum2d: {rows.shape[1]} rows are not a multiple of {bqq}")
     return msda_probes.msda_tent_plane(slab_raster, rows, RQ, W, P, "psum")

@@ -28,7 +28,9 @@ from univs_tpu_torch.utils.device import resolve_device
 def run_exp(slab_jmajor, xs, ys, was, D, P, Hw, b16p2):
     """slab_jmajor [N, M, W, H*D] (element (i; j*D + d) = V[j, i, d]),
     xs / ys / was [N, R, M] float32 point-minor -> [N, R / P, M, D]
-    float32.  ``Hw`` (0 < Hw <= H) is the TPU kernel's window."""
+    float32.  ``Hw`` (0 < Hw <= H) is the TPU kernel's window, kept for
+    parity with the JAX probe: it does not change the result (nothing
+    here to tune)."""
     H = slab_jmajor.shape[3] // D
     if not 0 < Hw <= H:
         raise ValueError(f"run_exp: window Hw={Hw} outside 1..{H}")
