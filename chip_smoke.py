@@ -10,7 +10,10 @@ non-zero):
   kernels — each kernel against its plain PyTorch version on the card, at
             the shapes the main path gives it (30 frames at 640x960,
             bf16 and float32) and at a tiny shape with D=8; times, bound
-            and errors per kernel; kernel D in both its modes (int8 slab,
+            and errors per kernel (B beside ``F.linear`` of its product
+            alone); at each of these, A also on samples on and past every
+            border of every level and B at a query count that is not a
+            multiple of its query tile; kernel D in both its modes (int8 slab,
             value dtype), and the whole ``ms_deform_attn`` op with
             ``impl='tent-int8'`` (quantisation included) beside
             ``impl='tent'`` (kernel A), each against the float32 law;
@@ -135,17 +138,17 @@ def make_inputs(shapes, geo, n_frames, dtype, seed):
         return (torch.randn(*shape, generator=g) * scale).cuda()
 
     q = rn(n_frames, Lq, C).to(dtype)
-    wo = rn(C, M * L * P * 2, scale=0.05).to(dtype)
+    # Dense kernels [in, out] as the model passes them: views of
+    # nn.Linear's [out, in] weights
+    wo = rn(M * L * P * 2, C, scale=0.05).to(dtype).t()
     bo = torch.as_tensor(msda_offset_bias(M, L, P)).cuda() + rn(M * L * P * 2, scale=0.1)
-    wa = rn(C, M * L * P, scale=0.05).to(dtype)
+    wa = rn(M * L * P, C, scale=0.05).to(dtype).t()
     ba = rn(M * L * P, scale=0.1)
     value = rn(n_frames, Lq, M, D).to(dtype)
     src = rn(n_frames, Lq, C).to(dtype)
     attn = rn(n_frames, Lq, C).to(dtype)
     ffn = dict(
         g1=1.0 + rn(C, scale=0.1), c1=rn(C, scale=0.1),
-        # Dense kernels [in, out] as the model passes them: views of
-        # nn.Linear's [out, in] weights
         w1=rn(F, C, scale=C ** -0.5).to(dtype).t(), b1=rn(F, scale=0.1),
         w2=rn(C, F, scale=F ** -0.5).to(dtype).t(), b2=rn(C, scale=0.1),
         g2=1.0 + rn(C, scale=0.1), c2=rn(C, scale=0.1),
@@ -231,32 +234,101 @@ def kernel_checks(results: dict) -> bool:
             got = kern()
             torch.cuda.synchronize()
             want = plain()
-            # loc [..., 3] holds (x, y, w): coordinates and weights apart
-            parts = ((got[..., :2], want[..., :2]), (got[..., 2], want[..., 2])) \
-                if name == "msda_rows" else ((got, want),)
-            errs = [float((g.float() - w.float()).abs().max()) for g, w in parts]
-            scales = [float(w.float().abs().max()) for _, w in parts]
-            finite = bool(torch.isfinite(got.float()).all())
-            tol = TOL[name.split("/")[0]][int(is_bf16)]
-            passed = finite and all(e <= tol * max(s, 1e-6) for e, s in zip(errs, scales))
-            ok &= passed
-            rec = {"check": name, "case": case, "dtype": str(dtype).replace("torch.", ""),
-                   "frames": n, "max_abs_err": max(errs), "ref_max_abs": max(scales),
-                   "tol_rel": tol, "pass": passed}
-            if name == "msda_rows":
-                rec.update(xy_max_abs_err=errs[0], xy_ref_max_abs=scales[0],
-                           w_max_abs_err=errs[1], w_ref_max_abs=scales[1])
+            rec = dict({"check": name, "case": case, "dtype": str(dtype).replace("torch.", ""),
+                        "frames": n}, **compare(name, got, want, dtype))
+            ok &= rec["pass"]
             if timed:
                 rec["kernel_ms"] = time_ms(kern, "cuda", iters=10)
                 rec["plain_ms"] = time_ms(plain, "cuda", iters=3, warmup=1)
+                if name == "msda_rows":
+                    # the yardstick of B's product part alone: one bf16
+                    # product with the concatenated [Wo | Wa] (never called
+                    # by the port)
+                    w_cat = torch.cat([x["wo"].t(), x["wa"].t()]).contiguous()
+                    rec["product_linear_ms"] = time_ms(
+                        lambda: torch.nn.functional.linear(x["q"], w_cat), "cuda", iters=10)
                 results[name] = dict(rec, **bound_of(name.split("/")[0], x, inputs, got))
             emit(rec)
             del got, want
+        ok &= edge_checks(case, shapes, geo, dtype, x)
         if timed:
             ok &= op_timing(x["value"], shapes, loc, results)
         del x, loc, q8, deq
         torch.cuda.empty_cache()
     return ok
+
+
+def compare(name, got, want, dtype) -> dict:
+    """A kernel's output against its plain version, within ``TOL``
+    relative to the reference's largest magnitude; kernel B's rows
+    [..., 3] hold (x, y, w), so coordinates and weights apart."""
+    import torch
+
+    rows = name.startswith("msda_rows")
+    parts = ((got[..., :2], want[..., :2]), (got[..., 2], want[..., 2])) if rows else ((got, want),)
+    errs = [float((g.float() - w.float()).abs().max()) for g, w in parts]
+    scales = [float(w.float().abs().max()) for _, w in parts]
+    finite = bool(torch.isfinite(got.float()).all())
+    tol = TOL[name.split("/")[0]][int(dtype == torch.bfloat16)]
+    passed = finite and all(e <= tol * max(s, 1e-6) for e, s in zip(errs, scales))
+    rec = {"max_abs_err": max(errs), "ref_max_abs": max(scales), "tol_rel": tol, "pass": passed}
+    if rows:
+        rec.update(xy_max_abs_err=errs[0], xy_ref_max_abs=scales[0],
+                   w_max_abs_err=errs[1], w_ref_max_abs=scales[1])
+    return rec
+
+
+# level sizes whose query count is not a multiple of kernel B's query
+# tile (64 on the tensor cores, 32 on the CUDA cores): 12,600 - 37 at full
+# width, 126 - 8 at the tiny one
+RAGGED_SHAPES = {"main": ((20, 30), (40, 60), (73, 131)), "tiny": ((2, 3), (4, 6), (8, 11))}
+
+
+def border_rows(shapes, N, M, P, seed):
+    """Rows [N, Lq, M, L, P, 3] whose samples lie on and past every border
+    of every level: x and y each one of {-1.5, -1, -0.5, 0, size - 1,
+    size - 0.5, size, size + 0.5} (the 64 pairs drawn per sample), a
+    quarter of the weights exactly 0."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    Lq, L = sum(h * w for h, w in shapes), len(shapes)
+    loc = torch.empty(N, Lq, M, L, P, 3)
+    for lid, (h, w) in enumerate(shapes):
+        xs = torch.tensor([-1.5, -1.0, -0.5, 0.0, w - 1.0, w - 0.5, float(w), w + 0.5])
+        ys = torch.tensor([-1.5, -1.0, -0.5, 0.0, h - 1.0, h - 0.5, float(h), h + 0.5])
+        k = torch.randint(0, 64, (N, Lq, M, P), generator=g)
+        loc[:, :, :, lid, :, 0] = xs[k % 8]
+        loc[:, :, :, lid, :, 1] = ys[k // 8]
+    wts = torch.rand(N, Lq, M, L, P, generator=g)
+    loc[..., 2] = torch.where(torch.rand(N, Lq, M, L, P, generator=g) < 0.25, 0.0, wts)
+    return loc.cuda()
+
+
+def edge_checks(case, shapes, geo, dtype, x) -> bool:
+    """Kernels A and B at their edges against their plain versions, with
+    the ``TOL`` tolerances: A on samples on and past every border of every
+    level (the case's value, 2 frames), B at a query count that is not a
+    multiple of its query tile (``RAGGED_SHAPES``, 2 frames, so a tile
+    also straddles the frames)."""
+    from univs_tpu_torch.ops import deformable_attention as da
+    from univs_tpu_torch.ops import msda_rows
+
+    head = {"case": case, "dtype": str(dtype).replace("torch.", ""), "frames": 2}
+    value = x["value"][:2]
+    loc = border_rows(shapes, 2, x["M"], x["P"], seed=5)
+    got = da.msda_sample_cuda(value, shapes, loc)
+    rec_a = dict(head, check="msda_sample/border", D=x["D"],
+                 **compare("msda_sample", got, da.msda_sample_plain(value, shapes, loc), dtype))
+    emit(rec_a)
+    rs = RAGGED_SHAPES[case]
+    y = make_inputs(rs, geo, 2, dtype, seed=77)
+    args = (y["q"], y["wo"], y["bo"], y["wa"], y["ba"], rs, y["M"], y["P"])
+    got = msda_rows.msda_rows_cuda(*args)
+    rec_b = dict(head, check="msda_rows/ragged", Lq=y["Lq"], D=y["D"],
+                 **compare("msda_rows", got, msda_rows.msda_rows_plain(*args), dtype))
+    emit(rec_b)
+    return rec_a["pass"] and rec_b["pass"]
 
 
 def rows_to_locations(shapes, loc):
@@ -1040,6 +1112,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
         }
+        if "product_linear_ms" in r:
+            row["product_linear_ms"] = r["product_linear_ms"]
         # the row is one mode (D: the int8 slab; E: psum over the whole
         # level; F: the base law); the kernel's other modes beside it
         modes = {k.split("/", 1)[1]: {"ms": d["kernel_ms"], "plain_ms": d["plain_ms"],

@@ -33,8 +33,6 @@
 //    tiny test config): FMA loops on the CUDA cores over 32-token blocks,
 //    the whole hidden row block (32 x F) in shared memory in the layer
 //    dtype.
-#include <cstdint>
-
 #include "common.cuh"
 
 namespace univs {
@@ -165,58 +163,17 @@ constexpr int kMmaNCH = 256; // hidden columns per chunk: 8 warps x 32
 constexpr int kPad = 8;      // bf16 row padding: conflict-free fragment loads
 constexpr int kStride = 256 + kPad;
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_smem32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld_global32(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// A fragments of the four 16-row m-tiles at k-offset k0 from a row-major
-// bf16 tile with row stride kStride (m16n8k16 "row" layout).
-__device__ __forceinline__ void load_a(uint32_t (&af)[4][4], const __nv_bfloat16* tile, int k0,
-                                       int g, int t) {
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const __nv_bfloat16* p = tile + (mt * 16 + g) * kStride + k0 + 2 * t;
-    af[mt][0] = ld_smem32(p);
-    af[mt][1] = ld_smem32(p + 8 * kStride);
-    af[mt][2] = ld_smem32(p + 8);
-    af[mt][3] = ld_smem32(p + 8 * kStride + 8);
-  }
-}
-
-// B fragments of four 8-column n-tiles at k-offset k0: column n of B is
-// row n of the [out, in] weight, so a fragment's k pairs are contiguous.
-__device__ __forceinline__ void load_b(uint32_t (&bf)[4][2], const __nv_bfloat16* w, int ldw,
-                                       int n0, int k0, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const __nv_bfloat16* p = w + (size_t)(n0 + nt * 8 + g) * ldw + k0 + 2 * t;
-    bf[nt][0] = ld_global32(p);
-    bf[nt][1] = ld_global32(p + 8);
-  }
-}
-
-// acc[4 m-tiles][4 n-tiles] += A[64 x K] (shared, bf16) * W[n0.., k_base..]^T
+// acc[4 m-tiles][4 n-tiles] += A[64 x K] (shared, bf16) * W[n0.., k_base..]^T,
+// B fragments read straight from the weight in global memory
 __device__ __forceinline__ void mma_tile(float (&acc)[4][4][4], const __nv_bfloat16* a_tile,
                                          const __nv_bfloat16* w, int ldw, int n0, int k_base,
                                          int K, int g, int t) {
   uint32_t bcur[4][2], bnext[4][2];
-  load_b(bcur, w, ldw, n0, k_base, g, t);
+  load_b<4, false>(bcur, w, ldw, n0, k_base, g, t);
   for (int k0 = 0; k0 < K; k0 += 16) {
-    if (k0 + 16 < K) load_b(bnext, w, ldw, n0, k_base + k0 + 16, g, t);
+    if (k0 + 16 < K) load_b<4, false>(bnext, w, ldw, n0, k_base + k0 + 16, g, t);
     uint32_t af[4][4];
-    load_a(af, a_tile, k0, g, t);
+    load_a<4>(af, a_tile, kStride, k0, g, t);
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
 #pragma unroll

@@ -49,18 +49,6 @@ constexpr int kPMax = 4;      // sampling points of a query (P <= 4)
 constexpr int kDMax = 64;     // channels (D % 8 == 0, D <= 64)
 constexpr int kAS = kKC + 8;  // row stride (elements) of the plane tile and of V^T
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_smem32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // eight plane entries rounded to the tile's type
 __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v) {
   uint4 u;

@@ -73,8 +73,17 @@ def msda_sample_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, i
 def msda_sample_cuda(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                      loc: torch.Tensor) -> torch.Tensor:
     """Kernel A on the card: value [N, S, M, D] float32/bfloat16, loc
-    [N, Lq, M, L, P, 3] float32, both contiguous -> [N, Lq, M*D]."""
+    [N, Lq, M, L, P, 3] float32, both contiguous and 16-byte aligned ->
+    [N, Lq, M*D].
+
+    The kernel reads a head's channels as 16-byte pieces, one lane each,
+    1, 2, 4 or 8 lanes a head: D in {8, 16, 32, 64} for bfloat16 and
+    D in {4, 8, 16, 32} for float32 (the model's D=32 and the tiny
+    config's D=8 in both).  Any other D raises."""
     N, S, M, D = value.shape
+    if D * value.element_size() not in (16, 32, 64, 128):
+        raise ValueError(f"msda_sample: head size D={D} in {value.dtype} is not 1, 2, 4 or 8 "
+                         "16-byte pieces")
     if loc.dim() != 6 or loc.shape[0] != N or loc.shape[2] != M or loc.shape[-1] != 3:
         raise ValueError(f"msda_sample: loc {tuple(loc.shape)} does not match value "
                          f"{tuple(value.shape)}")

@@ -40,7 +40,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # dtype, value, loc, out, N, S, Lq, M, D, P, L, shapes*, stream
     "msda_sample": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    # dtype, q, wo_t, bo, wa_t, ba, loc, N, Lq, C, M, P, L, shapes*, stream
+    # dtype, q, wo [2*M*L*P, C], bo, wa [M*L*P, C], ba, loc, N, Lq, C, M, P, L, shapes*, stream
     "msda_rows": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # dtype, x, a, g1, c1, w1_t, b1, w2_t, b2, g2, c2, out, ntok, C, F, eps, stream
     "fused_ffn_ln": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

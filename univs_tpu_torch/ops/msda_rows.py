@@ -60,8 +60,12 @@ def msda_rows_plain(query, wo, bo, wa, ba, spatial_shapes, n_heads: int, n_point
 
 def msda_rows_cuda(query, wo, bo, wa, ba, spatial_shapes, n_heads: int, n_points: int) -> torch.Tensor:
     """Kernel B on the card.  ``query`` [N, Lq, C] (contiguous) and the
-    weights [C, out] share one dtype (float32 or bfloat16); the weights
-    are made contiguous and the biases cast to float32 here."""
+    weights [C, out] share one dtype (float32 or bfloat16).  The kernel
+    reads the weights in nn.Linear's ``[out, in]`` layout, so ``wo.t()``
+    / ``wa.t()`` are made contiguous here (free when the caller passes
+    ``linear.weight.t()``, as the pixel decoder does); the biases are
+    cast to float32 here.  bf16 at 8 heads, 3 levels and 4 points with
+    C % 32 == 0 (the full-width encoder) runs on the tensor cores."""
     N, Lq, C = query.shape
     M, P, L = n_heads, n_points, len(spatial_shapes)
     Da = M * L * P
@@ -72,14 +76,14 @@ def msda_rows_cuda(query, wo, bo, wa, ba, spatial_shapes, n_heads: int, n_points
         raise TypeError("msda_rows: weights must have the query's dtype")
     if sum(h * w for h, w in spatial_shapes) != Lq:
         raise ValueError("msda_rows: Lq must equal the total pixel count of the levels")
-    wo, wa = wo.contiguous(), wa.contiguous()
+    wo_k, wa_k = wo.t().contiguous(), wa.t().contiguous()  # [2*Da, C], [Da, C]
     bo32 = bo.to(torch.float32).contiguous()
     ba32 = ba.to(torch.float32).contiguous()
-    kernels.require_cuda("msda_rows", query, wo, wa, bo32, ba32)
+    kernels.require_cuda("msda_rows", query, wo_k, wa_k, bo32, ba32)
     code = kernels.dtype_code(query)
     loc = torch.empty((N, Lq, M, L, P, 3), dtype=torch.float32, device=query.device)
     fn = kernels.lib("msda_rows").msda_rows_launch
-    err = fn(code, query.data_ptr(), wo.data_ptr(), bo32.data_ptr(), wa.data_ptr(),
+    err = fn(code, query.data_ptr(), wo_k.data_ptr(), bo32.data_ptr(), wa_k.data_ptr(),
              ba32.data_ptr(), loc.data_ptr(), N, Lq, C, M, P, L,
              kernels.shapes_arg(spatial_shapes), kernels.stream_arg(query.device))
     kernels.check("msda_rows", err)
