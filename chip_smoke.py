@@ -11,9 +11,13 @@ non-zero):
             the shapes the main path gives it (30 frames at 640x960,
             bf16 and float32) and at a tiny shape with D=8; times, bound
             and errors per kernel (B beside ``F.linear`` of its product
-            alone); at each of these, A also on samples on and past every
-            border of every level and B at a query count that is not a
-            multiple of its query tile; kernel D in both its modes (int8 slab,
+            alone; C beside the unfused bf16 sequence and its two
+            ``F.linear`` products, with the body it ran, which must be the
+            wgmma body at the main path's shape); at each of these, A also
+            on samples on and past every border of every level, B at a query
+            count that is not a multiple of its query tile, and C below one
+            token tile, straddling tiles and frames, on inputs with a large
+            common offset and on constant rows; kernel D in both its modes (int8 slab,
             value dtype), and the whole ``ms_deform_attn`` op with
             ``impl='tent-int8'`` (quantisation included) beside
             ``impl='tent'`` (kernel A), each against the float32 law;
@@ -236,6 +240,12 @@ def kernel_checks(results: dict) -> bool:
             want = plain()
             rec = dict({"check": name, "case": case, "dtype": str(dtype).replace("torch.", ""),
                         "frames": n}, **compare(name, got, want, dtype))
+            if name == "fused_ffn_ln":
+                # the body the wrapper launched; the main path's shape must
+                # take the wgmma body
+                rec["body"] = fused_mlp.ffn_body(dtype, x["C"], x["F"])
+                if timed:
+                    rec["pass"] &= rec["body"] == "wgmma"
             ok &= rec["pass"]
             if timed:
                 rec["kernel_ms"] = time_ms(kern, "cuda", iters=10)
@@ -247,6 +257,8 @@ def kernel_checks(results: dict) -> bool:
                     w_cat = torch.cat([x["wo"].t(), x["wa"].t()]).contiguous()
                     rec["product_linear_ms"] = time_ms(
                         lambda: torch.nn.functional.linear(x["q"], w_cat), "cuda", iters=10)
+                if name == "fused_ffn_ln":
+                    rec.update(ffn_yardsticks(x))
                 results[name] = dict(rec, **bound_of(name.split("/")[0], x, inputs, got))
             emit(rec)
             del got, want
@@ -306,11 +318,11 @@ def border_rows(shapes, N, M, P, seed):
 
 
 def edge_checks(case, shapes, geo, dtype, x) -> bool:
-    """Kernels A and B at their edges against their plain versions, with
-    the ``TOL`` tolerances: A on samples on and past every border of every
-    level (the case's value, 2 frames), B at a query count that is not a
-    multiple of its query tile (``RAGGED_SHAPES``, 2 frames, so a tile
-    also straddles the frames)."""
+    """Kernels A, B and C at their edges against their plain versions,
+    with the ``TOL`` tolerances: A on samples on and past every border of
+    every level (the case's value, 2 frames), B at a query count that is
+    not a multiple of its query tile (``RAGGED_SHAPES``, 2 frames, so a
+    tile also straddles the frames), C at ``FFN_EDGES``."""
     from univs_tpu_torch.ops import deformable_attention as da
     from univs_tpu_torch.ops import msda_rows
 
@@ -328,7 +340,81 @@ def edge_checks(case, shapes, geo, dtype, x) -> bool:
     rec_b = dict(head, check="msda_rows/ragged", Lq=y["Lq"], D=y["D"],
                  **compare("msda_rows", got, msda_rows.msda_rows_plain(*args), dtype))
     emit(rec_b)
-    return rec_a["pass"] and rec_b["pass"]
+    ffn_ok = ffn_edge_checks(case, geo, dtype, x["ffn"])
+    return rec_a["pass"] and rec_b["pass"] and ffn_ok
+
+
+# kernel C's edges (frames, tokens a frame, inputs): fewer tokens than one
+# 128-token tile; two frames whose tokens straddle tiles and the frame
+# border; src + attn with mean 100 and std 1 (a one-pass variance cancels
+# there); every other row constant (variance 0: the eps path)
+FFN_EDGES = {"main": (("below_tile", 1, 37, "random"), ("straddle", 2, 12563, "random"),
+                      ("offset", 1, 4000, "offset"), ("constant_rows", 1, 4000, "constant")),
+             "tiny": (("below_tile", 1, 37, "random"), ("straddle", 2, 125, "random"),
+                      ("offset", 1, 200, "offset"), ("constant_rows", 1, 200, "constant"))}
+
+
+def ffn_edge_inputs(N, S, C, kind, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    src, attn = torch.randn(N, S, C, generator=g), torch.randn(N, S, C, generator=g)
+    if kind == "offset":
+        src, attn = 100.0 + 0.6 * src, 0.8 * attn
+    elif kind == "constant":
+        # values with 8 significant bits, so that a row's float32 sum and
+        # mean are exact in either dtype and its deviations exactly 0
+        const = torch.arange(S) % 2 == 0
+        v = (torch.randn(N, int(const.sum()), 1, generator=g) * 3.0).to(torch.bfloat16).float()
+        src[:, const] = v
+        attn[:, const] = 0.0
+    return src.to(dtype).cuda(), attn.to(dtype).cuda()
+
+
+def ffn_edge_checks(case, geo, dtype, ff) -> bool:
+    """Kernel C at its edges (``FFN_EDGES``) against its plain version,
+    with the case's weights and the ``TOL`` tolerances."""
+    from univs_tpu_torch.ops import fused_mlp
+
+    args = (ff["g1"], ff["c1"], ff["w1"], ff["b1"], ff["w2"], ff["b2"], ff["g2"], ff["c2"])
+    ok = True
+    for i, (edge, N, S, kind) in enumerate(FFN_EDGES[case]):
+        src, attn = ffn_edge_inputs(N, S, geo["C"], kind, dtype, seed=300 + i)
+        got = fused_mlp.fused_ffn_ln_cuda(src, attn, *args)
+        want = fused_mlp.fused_ffn_ln_plain(src, attn, *args)
+        rec = dict({"check": f"fused_ffn_ln/{edge}", "case": case,
+                    "dtype": str(dtype).replace("torch.", ""), "frames": N, "tokens": S,
+                    "body": fused_mlp.ffn_body(dtype, geo["C"], geo["F"])},
+                   **compare("fused_ffn_ln", got, want, dtype))
+        emit(rec)
+        ok &= rec["pass"]
+    return ok
+
+
+def ffn_yardsticks(x) -> dict:
+    """Kernel C's yardsticks on the timed case's inputs, calls the port
+    never makes: the unfused bf16 sequence (add, ``F.layer_norm``,
+    ``F.linear``, relu, ``F.linear``, add, ``F.layer_norm``) and its two
+    ``F.linear`` products alone."""
+    import torch
+    import torch.nn.functional as tf
+
+    from univs_tpu_torch.tools import time_ms
+
+    ff, dt, C = x["ffn"], x["src"].dtype, x["C"]
+    v = {k: ff[k].to(dt) for k in ("g1", "c1", "b1", "b2", "g2", "c2")}
+    w1, w2 = ff["w1"].t(), ff["w2"].t()  # nn.Linear's [out, in]: contiguous
+
+    def unfused():
+        u = tf.layer_norm(x["src"] + x["attn"], (C,), v["g1"], v["c1"], 1e-5)
+        y = tf.linear(torch.relu(tf.linear(u, w1, v["b1"])), w2, v["b2"])
+        return tf.layer_norm(u + y, (C,), v["g2"], v["c2"], 1e-5)
+
+    u = tf.layer_norm(x["src"] + x["attn"], (C,), v["g1"], v["c1"], 1e-5)
+    hdn = torch.relu(tf.linear(u, w1, v["b1"]))
+    return {"unfused_ms": time_ms(unfused, "cuda", iters=10),
+            "products_ms": time_ms(lambda: (tf.linear(u, w1, v["b1"]), tf.linear(hdn, w2, v["b2"])),
+                                   "cuda", iters=10)}
 
 
 def rows_to_locations(shapes, loc):
@@ -1112,8 +1198,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
         }
-        if "product_linear_ms" in r:
-            row["product_linear_ms"] = r["product_linear_ms"]
+        for key in ("product_linear_ms", "body", "unfused_ms", "products_ms"):
+            if key in r:
+                row[key] = r[key]
         # the row is one mode (D: the int8 slab; E: psum over the whole
         # level; F: the base law); the kernel's other modes beside it
         modes = {k.split("/", 1)[1]: {"ms": d["kernel_ms"], "plain_ms": d["plain_ms"],

@@ -79,7 +79,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---------------------------------------------------------------------------
 // bf16 tensor-core tiles: mma.sync m16n8k16 (bf16 in, float32 accumulate)
-// and its fragment loaders (kernels B, C and E).  g = lane / 4 is the
+// and its fragment loaders (kernels B and E).  g = lane / 4 is the
 // fragment's row group and t = lane % 4 the thread in the group.
 // ---------------------------------------------------------------------------
 
@@ -93,10 +93,6 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, cons
 
 __device__ __forceinline__ uint32_t ld_smem32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld_global32(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
 // A fragments of MT 16-row m-tiles at k-offset k0 from a row-major bf16
@@ -114,17 +110,17 @@ __device__ __forceinline__ void load_a(uint32_t (&af)[MT][4], const __nv_bfloat1
   }
 }
 
-// B fragments of NT 8-column n-tiles at k-offset k0: column n of B is row
-// n of an [out, in] weight, so a fragment's k pairs are contiguous.  The
-// weight lies in shared memory (kShared) or in global memory.
-template <int NT, bool kShared>
+// B fragments of NT 8-column n-tiles at k-offset k0 from shared memory:
+// column n of B is row n of an [out, in] weight, so a fragment's k pairs
+// are contiguous.
+template <int NT>
 __device__ __forceinline__ void load_b(uint32_t (&bf)[NT][2], const __nv_bfloat16* w, int ldw,
                                        int n0, int k0, int g, int t) {
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const __nv_bfloat16* p = w + (size_t)(n0 + nt * 8 + g) * ldw + k0 + 2 * t;
-    bf[nt][0] = kShared ? ld_smem32(p) : ld_global32(p);
-    bf[nt][1] = kShared ? ld_smem32(p + 8) : ld_global32(p + 8);
+    bf[nt][0] = ld_smem32(p);
+    bf[nt][1] = ld_smem32(p + 8);
   }
 }
 

@@ -10,30 +10,52 @@
 // float32; the residual uses u in float32.  Weights come in nn.Linear's
 // layout: W1 [F, C], W2 [C, F] ([out, in], the reduction axis contiguous).
 //
-// Bound on the H100: ~13.2 GFLOP per frame at full width (12,600 tokens,
-// C=256, F=1024), ~13 us at the bf16 tensor-core peak of 989 TFLOP/s;
-// compulsory traffic is only src, attn_out and out (~19 MB per frame).
-// The hidden activation (~26 MB per frame in bf16) never reaches device
-// memory.
+// Bound on the H100: operations.  4·C·F flop a token, ~13.2 GFLOP per
+// frame at full width (12,600 tokens, C=256, F=1024), ~13 us at the bf16
+// tensor-core peak of 989 TFLOP/s; the compulsory traffic is only src,
+// attn_out and out (~19 MB per frame).  The hidden activation (~26 MB per
+// frame in bf16) never reaches device memory.
 //
-// Two bodies:
-//  - bf16 with C == 256 and F % 256 == 0 (the main path): tensor cores via
-//    mma.sync m16n8k16 (bf16 in, float32 accumulate).  A block takes 64
-//    tokens and 8 warps.  u (float32, for the residual and LN2) and u in
-//    bf16 (the A operand) live in shared memory; the hidden activation is
-//    streamed through shared memory in 256-column chunks: per chunk every
-//    warp computes 32 hidden columns of relu(u W1 + b1) for all 64 tokens,
-//    rounds them to bf16 into the chunk buffer, and then adds the chunk's
-//    share of hidden · W2 into its 64 x 32 output tile, which stays in
-//    registers across the chunks.  B fragments are read straight from the
-//    weights (L2-resident, 1 MB in all) with the next k-step's fragments
-//    loaded while the current one multiplies.  133 KB of shared memory,
-//    one block per SM.
-//  - every other case (float32; widths the tile does not fit, such as the
-//    tiny test config): FMA loops on the CUDA cores over 32-token blocks,
-//    the whole hidden row block (32 x F) in shared memory in the layer
-//    dtype.
+// Two bodies; the caller names one and a launch refuses a body that does
+// not fit (it never picks another):
+//  - wgmma (bf16, C == 256, F % 64 == 0: every launch of the model paths).
+//    Persistent and warp-specialised: one block of 384 threads per SM walks
+//    128-token tiles.  Warpgroups 0 and 1 each own 64 tokens; warpgroup 2's
+//    first thread is the producer.  Per hidden chunk of 64 columns:
+//      GEMM1  wgmma m64n64k16, A = u (bf16, shared, 128-byte swizzle),
+//             B = the W1 chunk (shared), 32 float32 accumulators a thread;
+//      b1 and relu in registers, the accumulators rounded to bf16 straight
+//             into wgmma's A-operand fragments (the m64 accumulator layout
+//             is the A register layout): the hidden activation touches
+//             neither shared nor device memory;
+//      GEMM2  wgmma m64n256k16, A from those registers, B = the W2 chunk,
+//             into the warpgroup's 64 x 256 float32 output tile (128
+//             registers a thread), which starts as u + b2 (the residual).
+//    The weights stream through two rings of two 32 KB stages (W1 chunks
+//    and W2 chunks) by TMA in the 128-byte swizzle, each stage's arrival
+//    and release tracked by mbarriers; no weight fragment is read from
+//    global memory inside the product loop.  Each warpgroup starts GEMM2 of
+//    chunk j and GEMM1 of chunk j + 1 together and waits once; the two
+//    warpgroups share the tensor cores, so one's relu / rounding can run
+//    beside the other's products.  (Keeping GEMM2 in flight across the
+//    next chunk's rounding, with two fragment sets, measured slower: ptxas
+//    serialises the wgmmas and spills.)  LN1 is fused into the
+//    prologue (16-byte coalesced loads, a 4 x 4 exchange inside each quad
+//    into the accumulator layout, two-pass float32 statistics over the
+//    quad); LN2 runs on the accumulators (a row lies in one quad: a local
+//    sum and two shuffles) and the output leaves through the same exchange
+//    as 16-byte stores, the ragged last tile masked.  setmaxnreg gives the
+//    consumers 232 registers and the producer 40.  Shared memory: u tiles
+//    64 KB + 4 weight stages 128 KB + the vectors.  The weights (1 MB) are
+//    read from L2 once per 128-token tile (~2.95 GB per 30-frame launch);
+//    one CTA per SM, no cluster: each chunk is fetched by its own CTA.
+//  - fma (float32; widths the tile does not fit, such as the tiny test
+//    config): FMA loops on the CUDA cores over 32-token blocks, the whole
+//    hidden row block (32 x F) in shared memory in the layer dtype.
 #include "common.cuh"
+#include "hopper.cuh"
+
+#include <mutex>
 
 namespace univs {
 
@@ -57,37 +79,6 @@ __device__ __forceinline__ void ln_rows_inplace(float* rows, int nrows, int C, i
   }
 }
 
-// u = LN1(x + a) for rows [t0, t0 + nrows) into u_s (row stride C); pad
-// rows beyond ntok are zero before the norm.
-template <typename T>
-__device__ __forceinline__ void load_ln1(const T* __restrict__ x, const T* __restrict__ a,
-                                         float* u_s, int t0, int nrows, int ntok, int C,
-                                         const float* __restrict__ g1,
-                                         const float* __restrict__ c1, float eps) {
-  for (int i = threadIdx.x; i < nrows * C; i += blockDim.x) {
-    const int t = t0 + i / C;
-    const size_t gi = (size_t)t * C + (i % C);
-    u_s[i] = t < ntok ? to_f32(x[gi]) + to_f32(a[gi]) : 0.f;
-  }
-  __syncthreads();
-  ln_rows_inplace(u_s, nrows, C, C, g1, c1, eps);
-  __syncthreads();
-}
-
-// LN2 over z in u_s and the single write of the layer output.
-template <typename T>
-__device__ __forceinline__ void ln2_store(float* u_s, T* __restrict__ out, int t0, int nrows,
-                                          int ntok, int C, const float* __restrict__ g2,
-                                          const float* __restrict__ c2, float eps) {
-  __syncthreads();
-  ln_rows_inplace(u_s, nrows, C, C, g2, c2, eps);
-  __syncthreads();
-  for (int i = threadIdx.x; i < nrows * C; i += blockDim.x) {
-    const int t = t0 + i / C;
-    if (t < ntok) out[(size_t)t * C + (i % C)] = from_f32<T>(u_s[i]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // FMA body (float32, and bf16 at widths the tensor-core tile does not fit)
 // ---------------------------------------------------------------------------
@@ -108,7 +99,15 @@ ffn_fma_kernel(const T* __restrict__ x, const T* __restrict__ a, const float* __
   T* h_s = reinterpret_cast<T*>(ur_s + BT * C);     // [BT][F] hidden, layer dtype
   const int t0 = blockIdx.x * BT;
 
-  load_ln1(x, a, u_s, t0, BT, ntok, C, g1, c1, eps);
+  // u = LN1(x + a); pad rows beyond ntok are zero before the norm
+  for (int i = threadIdx.x; i < BT * C; i += blockDim.x) {
+    const int t = t0 + i / C;
+    const size_t gi = (size_t)t * C + (i % C);
+    u_s[i] = t < ntok ? to_f32(x[gi]) + to_f32(a[gi]) : 0.f;
+  }
+  __syncthreads();
+  ln_rows_inplace(u_s, BT, C, C, g1, c1, eps);
+  __syncthreads();
   for (int i = threadIdx.x; i < BT * C; i += blockDim.x) ur_s[i] = round_to<T>(u_s[i]);
   __syncthreads();
 
@@ -150,118 +149,311 @@ ffn_fma_kernel(const T* __restrict__ x, const T* __restrict__ a, const float* __
 #pragma unroll
     for (int b = 0; b < BT; ++b) u_s[b * C + c] += acc[b] + bias;
   }
-  ln2_store(u_s, out, t0, BT, ntok, C, g2, c2, eps);
+
+  // LN2 and the single write of the layer output
+  __syncthreads();
+  ln_rows_inplace(u_s, BT, C, C, g2, c2, eps);
+  __syncthreads();
+  for (int i = threadIdx.x; i < BT * C; i += blockDim.x) {
+    const int t = t0 + i / C;
+    if (t < ntok) out[(size_t)t * C + (i % C)] = from_f32<T>(u_s[i]);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core body (bf16, C == 256)
+// wgmma body (bf16, C == 256)
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaC = 256;   // model width the tile is built for: 8 warps x 32 columns
-constexpr int kMmaBT = 64;   // tokens per block: 4 m-tiles of 16
-constexpr int kMmaNCH = 256; // hidden columns per chunk: 8 warps x 32
-constexpr int kPad = 8;      // bf16 row padding: conflict-free fragment loads
-constexpr int kStride = 256 + kPad;
+constexpr int kWgC = 256;                     // model width the tile is built for
+constexpr int kWgTok = 128;                   // tokens per tile: 2 warpgroups x 64
+constexpr int kWgFC = 64;                     // hidden columns per chunk
+constexpr int kWgThreads = 384;               // 2 consumer warpgroups + the producer's
+constexpr int kUTile = 64 * kWgC * 2;         // one warpgroup's u tile in bf16: 32 KB
+constexpr int kKBlock = 64 * 128;             // 64 rows x 128 B: one swizzle-wide K block
+constexpr int kW1Stage = kWgFC * kWgC * 2;    // W1 chunk [64, 256]: 32 KB
+constexpr int kW2Stage = kWgC * kWgFC * 2;    // W2 chunk [256, 64]: 32 KB
+constexpr int kOffW1 = 2 * kUTile;            // shared-memory layout (1024-byte aligned)
+constexpr int kOffW2 = kOffW1 + 2 * kW1Stage;
+constexpr int kOffVec = kOffW2 + 2 * kW2Stage;  // g1 c1 b2 g2 c2 [256] each, b1 [F]
 
-// acc[4 m-tiles][4 n-tiles] += A[64 x K] (shared, bf16) * W[n0.., k_base..]^T,
-// B fragments read straight from the weight in global memory
-__device__ __forceinline__ void mma_tile(float (&acc)[4][4][4], const __nv_bfloat16* a_tile,
-                                         const __nv_bfloat16* w, int ldw, int n0, int k_base,
-                                         int K, int g, int t) {
-  uint32_t bcur[4][2], bnext[4][2];
-  load_b<4, false>(bcur, w, ldw, n0, k_base, g, t);
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    if (k0 + 16 < K) load_b<4, false>(bnext, w, ldw, n0, k_base + k0 + 16, g, t);
-    uint32_t af[4][4];
-    load_a<4>(af, a_tile, kStride, k0, g, t);
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// 4 x 4 exchange of 32-bit words inside a quad: r[j] of thread t becomes
+// r[t] of thread j.  A row's 16-byte piece (thread t: columns of n-tile
+// 4k + t) <-> the accumulator layout (thread t: column pair t of n-tiles
+// 4k .. 4k + 3); indices stay compile-time, the lane picks by selects.
+__device__ __forceinline__ void quad_transpose(uint32_t (&r)[4], int t) {
+  const bool odd = t & 1, hi = t & 2;
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+  for (int m = 0; m < 2; ++m) {
+    const uint32_t recv = __shfl_xor_sync(0xffffffffu, odd ? r[2 * m] : r[2 * m + 1], 1);
+    if (odd) r[2 * m] = recv; else r[2 * m + 1] = recv;
+  }
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], af[mt], bcur[nt]);
+  for (int m = 0; m < 2; ++m) {
+    const uint32_t recv = __shfl_xor_sync(0xffffffffu, hi ? r[m] : r[m + 2], 2);
+    if (hi) r[m] = recv; else r[m + 2] = recv;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// LayerNorm of the two rows a thread holds in the m64n256 accumulator
+// layout (v[4i + 2h + e]: row g + 8h, column 8i + 2t + e), in place;
+// statistics in float32, two-pass, over the quad that holds the row
+__device__ __forceinline__ void ln_acc(float (&v)[128], const float* g, const float* c, float eps,
+                                       int t) {
+  float mu[2], rstd[2];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      bcur[nt][0] = bnext[nt][0];
-      bcur[nt][1] = bnext[nt][1];
+  for (int h = 0; h < 2; ++h) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s += v[4 * i + 2 * h] + v[4 * i + 2 * h + 1];
+    mu[h] = quad_sum(s) / (float)kWgC;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float d0 = v[4 * i + 2 * h] - mu[h], d1 = v[4 * i + 2 * h + 1] - mu[h];
+      q += d0 * d0 + d1 * d1;
+    }
+    rstd[h] = rsqrtf(quad_sum(q) / (float)kWgC + eps);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float2 gg = *reinterpret_cast<const float2*>(g + 8 * i + 2 * t);
+    const float2 cc = *reinterpret_cast<const float2*>(c + 8 * i + 2 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[4 * i + 2 * h] = (v[4 * i + 2 * h] - mu[h]) * rstd[h] * gg.x + cc.x;
+      v[4 * i + 2 * h + 1] = (v[4 * i + 2 * h + 1] - mu[h]) * rstd[h] * gg.y + cc.y;
     }
   }
 }
 
-__global__ void __launch_bounds__(256, 1)
-ffn_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ a,
-               const float* __restrict__ g1, const float* __restrict__ c1,
-               const __nv_bfloat16* __restrict__ w1,  // [F, 256]
-               const float* __restrict__ b1,
-               const __nv_bfloat16* __restrict__ w2,  // [256, F]
-               const float* __restrict__ b2, const float* __restrict__ g2,
-               const float* __restrict__ c2, __nv_bfloat16* __restrict__ out, int ntok, int F,
-               float eps) {
-  constexpr int C = kMmaC, BT = kMmaBT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* u_s = reinterpret_cast<float*>(smem_raw);                   // [BT][C] f32 u, then z
-  __nv_bfloat16* ua_s = reinterpret_cast<__nv_bfloat16*>(u_s + BT * C);  // [BT][kStride] u in bf16
-  __nv_bfloat16* h_s = ua_s + BT * kStride;                          // [BT][kStride] hidden chunk
-  const int t0 = blockIdx.x * BT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group / thread-in-group
+// h[64 tokens x 64 hidden] = u_tile · W1_chunk^T, 16 k-steps of 16
+__device__ __forceinline__ void gemm1(float (&h)[32], const unsigned char* u_tile,
+                                      const unsigned char* w1_stage) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kWgC / 16; ++ks) {
+    const int off = (ks / 4) * kKBlock + (ks % 4) * 32;
+    sm90::wgmma_m64n64k16_ss(h, sm90::desc_sw128(u_tile + off), sm90::desc_sw128(w1_stage + off),
+                             ks > 0);
+  }
+  sm90::wgmma_commit();
+}
 
-  load_ln1(x, a, u_s, t0, BT, ntok, C, g1, c1, eps);
-  for (int i = threadIdx.x; i < BT * C; i += blockDim.x)
-    ua_s[(i / C) * kStride + (i % C)] = __float2bfloat16_rn(u_s[i]);
+// relu(h + b1) rounded to bf16 as GEMM2's A fragments: k-step ks covers
+// the chunk's hidden columns 16ks .. 16ks + 15 (n-tiles 2ks, 2ks + 1)
+__device__ __forceinline__ void hidden_frags(uint32_t (&af)[4][4], const float (&h)[32],
+                                             const float* b1c, int t) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 2 * ks + e;
+      const float2 bb = *reinterpret_cast<const float2*>(b1c + 8 * i + 2 * t);
+      af[ks][2 * e] = pack_bf16(fmaxf(h[4 * i] + bb.x, 0.f), fmaxf(h[4 * i + 1] + bb.y, 0.f));
+      af[ks][2 * e + 1] =
+          pack_bf16(fmaxf(h[4 * i + 2] + bb.x, 0.f), fmaxf(h[4 * i + 3] + bb.y, 0.f));
+    }
+  }
+}
+
+// acc[64 tokens x 256] += relu-hidden chunk (registers) · W2_chunk^T
+__device__ __forceinline__ void gemm2(float (&acc)[128], uint32_t (&af)[4][4],
+                                      const unsigned char* w2_stage) {
+  sm90::wgmma_fence();
+  sm90::fence_regs(acc);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    sm90::wgmma_m64n256k16_rs(acc, af[ks], sm90::desc_sw128(w2_stage + ks * 32));
+  sm90::wgmma_commit();
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+ffn_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,  // W1 [F, 256], boxes [64, 64]
+                 const __grid_constant__ CUtensorMap w2_map,  // W2 [256, F], boxes [256, 64]
+                 const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ a,
+                 const float* __restrict__ g1, const float* __restrict__ c1,
+                 const float* __restrict__ b1, const float* __restrict__ b2,
+                 const float* __restrict__ g2, const float* __restrict__ c2,
+                 __nv_bfloat16* __restrict__ out, int ntok, int F, float eps) {
+  constexpr int C = kWgC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* vec = reinterpret_cast<float*>(smem + kOffVec);
+  float *g1_s = vec, *c1_s = vec + C, *b2_s = vec + 2 * C, *g2_s = vec + 3 * C,
+        *c2_s = vec + 4 * C, *b1_s = vec + 5 * C;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(b1_s + F);  // F % 64 == 0: 8-byte aligned
+  uint64_t *full1 = bars, *empty1 = bars + 2, *full2 = bars + 4, *empty2 = bars + 6;
+
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {
+    g1_s[i] = g1[i];
+    c1_s[i] = c1[i];
+    b2_s[i] = b2[i];
+    g2_s[i] = g2[i];
+    c2_s[i] = c2[i];
+  }
+  for (int i = threadIdx.x; i < F; i += blockDim.x) b1_s[i] = b1[i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(&full1[s], 1);
+      sm90::mbar_init(&full2[s], 1);
+      sm90::mbar_init(&empty1[s], 8);  // one arrival per consumer warp
+      sm90::mbar_init(&empty2[s], 8);
+    }
+    sm90::fence_barrier_init();
+  }
   __syncthreads();
 
-  float acc2[4][4][4];  // this warp's 64 x 32 output tile, columns [warp*32, +32)
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc2[mt][nt][e] = 0.f;
+  const int nch = F / kWgFC;
+  const int ntiles = (ntok + kWgTok - 1) / kWgTok;
+  const int wg = threadIdx.x / 128;
 
-  for (int ch = 0; ch < F; ch += kMmaNCH) {
-    // hidden columns [ch + warp*32, +32) = relu(u W1 + b1), rounded to bf16
-    float acc1[4][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc1[mt][nt][e] = 0.f;
-    mma_tile(acc1, ua_s, w1, C, ch + warp * 32, 0, C, g, t);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = warp * 32 + nt * 8 + 2 * t;  // within the chunk
-        const float bx = b1[ch + col], by = b1[ch + col + 1];
-        const int r0 = mt * 16 + g;
-        *reinterpret_cast<__nv_bfloat162*>(h_s + r0 * kStride + col) = __floats2bfloat162_rn(
-            fmaxf(acc1[mt][nt][0] + bx, 0.f), fmaxf(acc1[mt][nt][1] + by, 0.f));
-        *reinterpret_cast<__nv_bfloat162*>(h_s + (r0 + 8) * kStride + col) =
-            __floats2bfloat162_rn(fmaxf(acc1[mt][nt][2] + bx, 0.f),
-                                  fmaxf(acc1[mt][nt][3] + by, 0.f));
+  if (wg == 2) {
+    // ---- producer: W1 and W2 chunks, in the order the consumers take them
+    sm90::reg_dealloc<40>();
+    if (threadIdx.x == 2 * 128) {
+      uint32_t n = 0;  // chunks requested
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        for (int j = 0; j < nch; ++j, ++n) {
+          const int s = n & 1;
+          const uint32_t ph = (n >> 1) & 1;
+          sm90::mbar_wait(&empty1[s], ph ^ 1);
+          sm90::mbar_arrive_expect_tx(&full1[s], kW1Stage);
+          for (int kb = 0; kb < C / 64; ++kb)
+            sm90::tma_load_2d(smem + kOffW1 + s * kW1Stage + kb * kKBlock, &w1_map, &full1[s],
+                              kb * 64, j * kWgFC);
+          sm90::mbar_wait(&empty2[s], ph ^ 1);
+          sm90::mbar_arrive_expect_tx(&full2[s], kW2Stage);
+          sm90::tma_load_2d(smem + kOffW2 + s * kW2Stage, &w2_map, &full2[s], j * kWgFC, 0);
+        }
       }
     }
-    __syncthreads();
-    // output columns [warp*32, +32) += hidden chunk · W2[:, ch:ch+256]^T
-    mma_tile(acc2, h_s, w2, F, warp * 32, ch, kMmaNCH, g, t);
-    __syncthreads();  // the next chunk overwrites h_s
-  }
+  } else {
+    // ---- consumers: 64 tokens each
+    sm90::reg_alloc<232>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int lr = warp * 16 + g;  // local rows lr and lr + 8 of the warpgroup's 64
+    unsigned char* u_tile = smem + wg * kUTile;
+    float acc[128];  // output tile: u + b2, then + hidden · W2^T, then LN2
+    float h[32];     // hidden chunk
+    uint32_t n = 0;  // chunks consumed
 
-  // z = u + y2 + b2 over the u tile (each element has one owner)
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int row[2] = {tile * kWgTok + wg * 64 + lr, tile * kWgTok + wg * 64 + lr + 8};
+
+      // LN1 prologue: src + attn in float32 into the accumulator layout
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+      for (int k = 0; k < 8; ++k) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = warp * 32 + nt * 8 + 2 * t;
-      const int r0 = mt * 16 + g;
-      const float bx = b2[col], by = b2[col + 1];
-      u_s[r0 * C + col] += acc2[mt][nt][0] + bx;
-      u_s[r0 * C + col + 1] += acc2[mt][nt][1] + by;
-      u_s[(r0 + 8) * C + col] += acc2[mt][nt][2] + bx;
-      u_s[(r0 + 8) * C + col + 1] += acc2[mt][nt][3] + by;
+        for (int hh = 0; hh < 2; ++hh) {
+          const bool in = row[hh] < ntok;
+          const size_t off = (size_t)(in ? row[hh] : 0) * C + 8 * (4 * k + t);
+          uint4 xv = __ldg(reinterpret_cast<const uint4*>(x + off));
+          uint4 av = __ldg(reinterpret_cast<const uint4*>(a + off));
+          uint32_t xr[4] = {xv.x, xv.y, xv.z, xv.w}, ar[4] = {av.x, av.y, av.z, av.w};
+          quad_transpose(xr, t);
+          quad_transpose(ar, t);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float2 xf = unpack_bf16(xr[q]), af = unpack_bf16(ar[q]);
+            acc[4 * (4 * k + q) + 2 * hh] = in ? xf.x + af.x : 0.f;
+            acc[4 * (4 * k + q) + 2 * hh + 1] = in ? xf.y + af.y : 0.f;
+          }
+        }
+      }
+      ln_acc(acc, g1_s, c1_s, eps, t);  // acc = u (float32)
+
+      // u in bf16 -> this warpgroup's A tile (K blocks of 64, 128-byte
+      // swizzle: the 16-byte piece p of row r lies at p ^ (r % 8)), once the
+      // previous tile's products have finished reading it
+      sm90::named_sync(1 + wg, 128);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = lr + 8 * hh;
+          const int off = (i / 8) * kKBlock + r * 128 + (((i % 8) ^ (r % 8)) * 16) + 4 * t;
+          *reinterpret_cast<uint32_t*>(u_tile + off) =
+              pack_bf16(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float2 bb = *reinterpret_cast<const float2*>(b2_s + 8 * i + 2 * t);
+        acc[4 * i] += bb.x;
+        acc[4 * i + 1] += bb.y;
+        acc[4 * i + 2] += bb.x;
+        acc[4 * i + 3] += bb.y;
+      }
+      sm90::fence_proxy_async();
+      sm90::named_sync(1 + wg, 128);
+
+      // GEMM1 of chunk 0
+      {
+        const int s = n & 1;
+        sm90::mbar_wait(&full1[s], (n >> 1) & 1);
+        gemm1(h, u_tile, smem + kOffW1 + s * kW1Stage);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(h);
+        if (lane == 0) sm90::mbar_arrive(&empty1[s]);
+      }
+      for (int j = 0; j < nch; ++j, ++n) {
+        const int s = n & 1;
+        uint32_t af[4][4];
+        hidden_frags(af, h, b1_s + j * kWgFC, t);
+        // GEMM2 of chunk j, then GEMM1 of chunk j + 1 behind it
+        sm90::mbar_wait(&full2[s], (n >> 1) & 1);
+        gemm2(acc, af, smem + kOffW2 + s * kW2Stage);
+        const int s1 = (n + 1) & 1;
+        if (j + 1 < nch) {
+          sm90::mbar_wait(&full1[s1], ((n + 1) >> 1) & 1);
+          gemm1(h, u_tile, smem + kOffW1 + s1 * kW1Stage);
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(h);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) sm90::fence_regs(af[ks]);
+        if (lane == 0) {
+          sm90::mbar_arrive(&empty2[s]);
+          if (j + 1 < nch) sm90::mbar_arrive(&empty1[s1]);
+        }
+      }
+      sm90::fence_regs(acc);
+
+      // LN2 on the accumulators; out in bf16 as 16-byte stores
+      ln_acc(acc, g2_s, c2_s, eps, t);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          uint32_t r[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            r[q] = pack_bf16(acc[4 * (4 * k + q) + 2 * hh], acc[4 * (4 * k + q) + 2 * hh + 1]);
+          quad_transpose(r, t);
+          if (row[hh] < ntok)
+            *reinterpret_cast<uint4*>(out + (size_t)row[hh] * C + 8 * (4 * k + t)) =
+                make_uint4(r[0], r[1], r[2], r[3]);
+        }
+      }
     }
   }
-  ln2_store(u_s, out, t0, BT, ntok, C, g2, c2, eps);
 }
 
 // ---------------------------------------------------------------------------
@@ -285,32 +477,80 @@ int launch_fma(const void* x, const void* a, const void* g1, const void* c1, con
   return (int)cudaGetLastError();
 }
 
-int launch_mma(const void* x, const void* a, const void* g1, const void* c1, const void* w1,
-               const void* b1, const void* w2, const void* b2, const void* g2, const void* c2,
-               void* out, int ntok, int F, float eps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kMmaBT * kMmaC + 2 * sizeof(__nv_bfloat16) * kMmaBT * kStride;
-  cudaError_t e = cudaFuncSetAttribute(ffn_mma_kernel,
+// The two weights' tensor maps, encoded once per (W1, W2, F): a map holds
+// only the address, the shape and the box, so a hit is the same map.
+struct WeightMaps {
+  const void* w1;
+  const void* w2;
+  int F;
+  CUtensorMap m1, m2;
+};
+
+int weight_maps(const void* w1, const void* w2, int F, CUtensorMap* m1, CUtensorMap* m2) {
+  static std::mutex mu;
+  static WeightMaps cache[8];
+  static int used = 0, next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    if (cache[i].w1 == w1 && cache[i].w2 == w2 && cache[i].F == F) {
+      *m1 = cache[i].m1;
+      *m2 = cache[i].m2;
+      return 0;
+    }
+  }
+  WeightMaps e{w1, w2, F, {}, {}};
+  int err = sm90::encode_bf16_sw128(&e.m1, w1, kWgC, F, 64, kWgFC);
+  if (err == 0) err = sm90::encode_bf16_sw128(&e.m2, w2, F, kWgC, kWgFC, kWgC);
+  if (err != 0) return err;
+  cache[next] = e;
+  next = (next + 1) % 8;
+  if (used < 8) ++used;
+  *m1 = e.m1;
+  *m2 = e.m2;
+  return 0;
+}
+
+int launch_wgmma(const void* x, const void* a, const void* g1, const void* c1, const void* w1,
+                 const void* b1, const void* w2, const void* b2, const void* g2, const void* c2,
+                 void* out, int ntok, int C, int F, float eps, cudaStream_t stream) {
+  if (C != kWgC || F <= 0 || F % kWgFC != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = 1024 + kOffVec + sizeof(float) * (5 * kWgC + (size_t)F) + 8 * sizeof(uint64_t);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  CUtensorMap m1, m2;
+  int err = weight_maps(w1, w2, F, &m1, &m2);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(ffn_wgmma_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (ntok + kMmaBT - 1) / kMmaBT;
-  ffn_mma_kernel<<<blocks, 256, smem, stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)a, (const float*)g1, (const float*)c1,
-      (const __nv_bfloat16*)w1, (const float*)b1, (const __nv_bfloat16*)w2, (const float*)b2,
-      (const float*)g2, (const float*)c2, (__nv_bfloat16*)out, ntok, F, eps);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const int ntiles = (ntok + kWgTok - 1) / kWgTok;
+  const int blocks = ntiles < sms ? (ntiles > 0 ? ntiles : 1) : sms;
+  ffn_wgmma_kernel<<<blocks, kWgThreads, smem, stream>>>(
+      m1, m2, (const __nv_bfloat16*)x, (const __nv_bfloat16*)a, (const float*)g1,
+      (const float*)c1, (const float*)b1, (const float*)b2, (const float*)g2, (const float*)c2,
+      (__nv_bfloat16*)out, ntok, F, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace univs
 
-extern "C" int fused_ffn_ln_launch(int dtype, const void* x, const void* a, const void* g1,
-                                   const void* c1, const void* w1, const void* b1,
-                                   const void* w2, const void* b2, const void* g2,
-                                   const void* c2, void* out, int ntok, int C, int F,
-                                   float eps, void* stream) {
+// body: 0 = fma, 1 = wgmma (bf16, C == 256, F % 64 == 0); a body that
+// does not fit the arguments returns cudaErrorInvalidValue
+extern "C" int fused_ffn_ln_launch(int body, int dtype, const void* x, const void* a,
+                                   const void* g1, const void* c1, const void* w1,
+                                   const void* b1, const void* w2, const void* b2,
+                                   const void* g2, const void* c2, void* out, int ntok, int C,
+                                   int F, float eps, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (C % 4 != 0 || F % 4 != 0 || ntok < 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && C == univs::kMmaC && F % univs::kMmaNCH == 0)
-    return univs::launch_mma(x, a, g1, c1, w1, b1, w2, b2, g2, c2, out, ntok, F, eps, s);
+  if (body == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return univs::launch_wgmma(x, a, g1, c1, w1, b1, w2, b2, g2, c2, out, ntok, C, F, eps, s);
+  }
+  if (body != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return univs::launch_fma<float>(x, a, g1, c1, w1, b1, w2, b2, g2, c2, out, ntok, C, F,
                                     eps, s);

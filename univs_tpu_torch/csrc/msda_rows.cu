@@ -204,7 +204,7 @@ msda_rows_mma_kernel(const __nv_bfloat16* __restrict__ q,   // [rows, C]
     for (int k0 = 0; k0 < KC; k0 += 16) {
       uint32_t af[2][4], bf[NTW][2];
       load_a<2>(af, qs + wm * 32 * QS, QS, k0, g, t);
-      load_b<NTW, true>(bf, ws, QS, wn * NTW * 8, k0, g, t);
+      load_b<NTW>(bf, ws, QS, wn * NTW * 8, k0, g, t);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll

@@ -9,7 +9,8 @@ activation in the layer dtype and accumulate in float32 (the TPU
 kernel's law, ``fused_mlp.py:27-43``).  Weights are in the JAX layout
 ``[in, out]``.  ``fused_ffn_ln`` dispatches on the device: the CPU takes
 ``fused_ffn_ln_plain``, a CUDA tensor launches kernel C
-(``csrc/fused_ffn_ln.cu``) or raises.
+(``csrc/fused_ffn_ln.cu``) or raises.  ``ffn_body`` is the one place that
+chooses kernel C's body; the launch refuses a body that does not fit.
 """
 
 from __future__ import annotations
@@ -26,6 +27,22 @@ def _ln(z: torch.Tensor, g: torch.Tensor, c: torch.Tensor, eps: float) -> torch.
     return zc * torch.rsqrt(var + eps) * g.to(torch.float32) + c.to(torch.float32)
 
 
+# kernel C's bodies (the code the launch takes) and the widths its wgmma
+# body is built for: C = 256, F a multiple of the 64-column hidden chunk
+BODIES = {"fma": 0, "wgmma": 1}
+WGMMA_C = 256
+WGMMA_CHUNK = 64
+
+
+def ffn_body(dtype: torch.dtype, C: int, F: int) -> str:
+    """The body kernel C runs for these widths: ``"wgmma"`` (bf16, C =
+    256, F a multiple of 64: every launch of the model paths), else
+    ``"fma"``."""
+    if dtype == torch.bfloat16 and C == WGMMA_C and F > 0 and F % WGMMA_CHUNK == 0:
+        return "wgmma"
+    return "fma"
+
+
 def fused_ffn_ln_plain(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps: float = 1e-5):
     """Plain PyTorch version of kernel C: src/attn_out [N, S, C],
     w1 [C, F], w2 [F, C] -> [N, S, C] in src's dtype."""
@@ -38,11 +55,13 @@ def fused_ffn_ln_plain(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps: float
 
 
 def fused_ffn_ln_cuda(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps: float = 1e-5):
-    """Kernel C on the card.  src, attn_out, w1, w2 share one dtype
-    (float32 or bfloat16) and src / attn_out are contiguous.  The kernel
-    reads the weights in nn.Linear's ``[out, in]`` layout, so ``w1.t()``
-    / ``w2.t()`` are made contiguous here (free when the caller passes
-    ``linear.weight.t()``); the vectors are cast to float32 here."""
+    """Kernel C on the card, in the body ``ffn_body`` names.  src,
+    attn_out, w1, w2 share one dtype (float32 or bfloat16) and src /
+    attn_out are contiguous.  The kernel reads the weights in nn.Linear's
+    ``[out, in]`` layout, so ``w1.t()`` / ``w2.t()`` are made contiguous
+    here (free when the caller passes ``linear.weight.t()``, which also
+    keeps the wgmma body's weight tensor maps, cached per weight address,
+    from being encoded again); the vectors are cast to float32 here."""
     N, S, C = src.shape
     F = w1.shape[1]
     if tuple(attn_out.shape) != (N, S, C) or tuple(w1.shape) != (C, F) or tuple(w2.shape) != (F, C):
@@ -56,12 +75,15 @@ def fused_ffn_ln_cuda(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps: float 
     w1_k, w2_k = w1.t().contiguous(), w2.t().contiguous()  # [F, C], [C, F]
     kernels.require_cuda("fused_ffn_ln", src, attn_out, w1_k, w2_k, *vec)
     code = kernels.dtype_code(src)
+    body = ffn_body(src.dtype, C, F)
     out = torch.empty_like(src)
+    if body == "wgmma" and any(t.data_ptr() % 16 for t in (src, attn_out, w1_k, w2_k, out)):
+        raise ValueError("fused_ffn_ln: the wgmma body needs 16-byte aligned tensors")
     g1_, c1_, b1_, b2_, g2_, c2_ = vec
     fn = kernels.lib("fused_ffn_ln").fused_ffn_ln_launch
-    err = fn(code, src.data_ptr(), attn_out.data_ptr(), g1_.data_ptr(), c1_.data_ptr(),
-             w1_k.data_ptr(), b1_.data_ptr(), w2_k.data_ptr(), b2_.data_ptr(), g2_.data_ptr(),
-             c2_.data_ptr(), out.data_ptr(), N * S, C, F, float(eps),
+    err = fn(BODIES[body], code, src.data_ptr(), attn_out.data_ptr(), g1_.data_ptr(),
+             c1_.data_ptr(), w1_k.data_ptr(), b1_.data_ptr(), w2_k.data_ptr(), b2_.data_ptr(),
+             g2_.data_ptr(), c2_.data_ptr(), out.data_ptr(), N * S, C, F, float(eps),
              kernels.stream_arg(src.device))
     kernels.check("fused_ffn_ln", err)
     kernels.LAUNCHES["fused_ffn_ln"] += 1

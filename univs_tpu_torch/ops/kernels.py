@@ -15,6 +15,7 @@ through the kernels (``reset_launch_counts`` / ``launch_counts``).
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -42,8 +43,8 @@ _SIGNATURES = {
     "msda_sample": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # dtype, q, wo [2*M*L*P, C], bo, wa [M*L*P, C], ba, loc, N, Lq, C, M, P, L, shapes*, stream
     "msda_rows": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    # dtype, x, a, g1, c1, w1_t, b1, w2_t, b2, g2, c2, out, ntok, C, F, eps, stream
-    "fused_ffn_ln": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+    # body, dtype, x, a, g1, c1, w1_t, b1, w2_t, b2, g2, c2, out, ntok, C, F, eps, stream
+    "fused_ffn_ln": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      ctypes.c_float, _P],
     # dtype, int8, value, dequant, loc, out, N, S, Lq, M, D, P, L, shapes*, stream
     "msda_tent_base": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -75,11 +76,13 @@ def _lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any header under
+    ``csrc/`` (each one the source can include)."""
     lib = _lib_path(name)
     if not os.path.exists(lib):
         return True
     t = os.path.getmtime(lib)
-    srcs = [os.path.join(CSRC, f"{name}.cu"), os.path.join(CSRC, "common.cuh")]
+    srcs = [os.path.join(CSRC, f"{name}.cu")] + glob.glob(os.path.join(CSRC, "*.cuh"))
     return any(os.path.getmtime(s) > t for s in srcs)
 
 
