@@ -17,15 +17,21 @@ non-zero):
             on samples on and past every border of every level, B at a query
             count that is not a multiple of its query tile, and C below one
             token tile, straddling tiles and frames, on inputs with a large
-            common offset and on constant rows; kernel D in both its modes (int8 slab,
-            value dtype), and the whole ``ms_deform_attn`` op with
-            ``impl='tent-int8'`` (quantisation included) beside
-            ``impl='tent'`` (kernel A), each against the float32 law;
+            common offset and on constant rows; kernel D in both its modes
+            (int8 slab, value dtype), also on the border samples, on a
+            query count that leaves a partial warp of lane groups and on
+            weights of up to 300 (the int8 mode's wide-tap path), and the
+            whole ``ms_deform_attn`` op with ``impl='tent-int8'``
+            (quantisation included) beside ``impl='tent'`` (kernel A), each
+            against the float32 law;
             kernels E (the point-summed tent plane: psum / outer, whole
             level / y-window) and F (the separable tent probe laws: kernel,
             base, b16t1, b16all, exp, exp-b16) at the probes' geometry (the
             1/8 level, 5 frames, 8 heads, 4 points, D=32; bf16 timed, and
-            float32) and at a tiny shape; F and D bit-exact;
+            float32) and at a tiny shape, F also at every law in both slab
+            layouts on a head and row count whose lane groups straddle the
+            last warp; F and D bit-exact, their timed records with the
+            sector traffic of their gathers;
   paths   — each path driven with the launch counts set to 0 just before
             and read just after, every kernel's count equal to the path's
             expectation:
@@ -259,6 +265,9 @@ def kernel_checks(results: dict) -> bool:
                         lambda: torch.nn.functional.linear(x["q"], w_cat), "cuda", iters=10)
                 if name == "fused_ffn_ln":
                     rec.update(ffn_yardsticks(x))
+                if name.startswith("msda_tent_base"):
+                    rec.update(gather_traffic(n * x["Lq"] * M * x["L"] * P, 4, x["D"],
+                                              inputs[0].element_size(), rec["kernel_ms"]))
                 results[name] = dict(rec, **bound_of(name.split("/")[0], x, inputs, got))
             emit(rec)
             del got, want
@@ -341,7 +350,48 @@ def edge_checks(case, shapes, geo, dtype, x) -> bool:
                  **compare("msda_rows", got, msda_rows.msda_rows_plain(*args), dtype))
     emit(rec_b)
     ffn_ok = ffn_edge_checks(case, geo, dtype, x["ffn"])
-    return rec_a["pass"] and rec_b["pass"] and ffn_ok
+    tent_ok = tent_base_edge_checks(head, shapes, value, loc)
+    return rec_a["pass"] and rec_b["pass"] and ffn_ok and tent_ok
+
+
+def tent_base_edge_checks(head, shapes, value, loc) -> bool:
+    """Kernel D in both modes (int8 slab, value dtype) at its edges, to
+    the bit: on the border rows of every level (2 frames); on their first
+    Lq - 37 queries of one frame, a count that leaves a partial warp of
+    lane groups where a query's groups fill less than a warp (at full
+    width the int8 slab and a bf16 value, every mode at the tiny one; the
+    record gives the launch's threads modulo 32); and on one frame of them
+    with the weights scaled by 300."""
+    import torch
+
+    from univs_tpu_torch.ops import deformable_attention as da
+
+    dtype = value.dtype
+    q8, scale = da.quantize_int8_slab(value, shapes)
+    deq = scale * torch.tensor(da._DEQUANT, dtype=torch.float32, device=scale.device)
+    M, D = value.shape[2:]
+    ok = True
+    # wide taps: weights of up to 300 make |mq| = rint(tx * 127) pass the
+    # int16 range of the int8 mode's dp2a, whose other path must agree too
+    wide = loc.clone()
+    wide[..., 2] *= 300.0
+    for where, n, lq, src in (("border", 2, loc.shape[1], loc),
+                              ("ragged", 1, loc.shape[1] - 37, loc),
+                              ("wide_taps", 1, loc.shape[1], wide)):
+        rows = src[:n, :lq].contiguous()
+        for mode, args in (("int8", (q8[:n], shapes, rows, deq[:n], dtype)),
+                           ("dtype", (value[:n], shapes, rows))):
+            got = da.msda_tent_base_cuda(*args)
+            want = da.msda_tent_base_plain(*args)
+            # a lane's piece (msda_tent_base.cu): 16 bytes of the slab, 32 of a value
+            size = args[0].element_size()
+            lanes = D * size // min(16 if mode == "int8" else 32, D * size)
+            rec = dict(head, check=f"msda_tent_base/{where}", mode=mode, frames=n, Lq=lq, D=D,
+                       threads_mod_32=n * lq * M * min(lanes, 32) % 32,
+                       **compare("msda_tent_base", got, want, dtype))
+            emit(rec)
+            ok &= rec["pass"]
+    return ok
 
 
 # kernel C's edges (frames, tokens a frame, inputs): fewer tokens than one
@@ -525,6 +575,16 @@ def tent_probe_inputs(case, dtype):
                 jmajor=v.permute(0, 1, 3, 2, 4).reshape(N, M, W, H * D).contiguous())
 
 
+def gather_traffic(samples, reads, D, size, ms) -> dict:
+    """The 32-byte sectors a gather kernel's samples touch, each sample's
+    ``reads`` reads of ``D`` contiguous elements of ``size`` bytes counted
+    once per sample (an upper bound on the L2 traffic: hits in L1 are not
+    subtracted, a read straddling two sectors counts one), and the rate
+    that traffic would need at the kernel's time."""
+    byts = float(samples) * reads * -(-D * size // 32) * 32
+    return {"gather_bytes": byts, "gather_tb_per_s": byts / (ms * 1e-3) / 1e12}
+
+
 def probe_bound(inputs, out, ops) -> dict:
     """The function's minimal work, as kernel A's (one level): each input
     the output depends on read once (E: the RQ query rows, not the padded
@@ -615,11 +675,51 @@ def probe_kernel_checks(results: dict) -> bool:
                 rec["kernel_ms"] = time_ms(kern, "cuda", iters=10)
                 rec["plain_ms"] = time_ms(plain, "cuda", iters=2, warmup=1)
                 rec.update(probe_bound(inputs, got, ops))
+                if base == "msda_tent_probe":
+                    # d-major: each channel's rows (j, j + 1) at two columns;
+                    # j-major: four corners of contiguous channels
+                    dmajor = inputs[0] is f["dmajor"]
+                    rec.update(gather_traffic(
+                        f["N"] * f["R"] * f["M"], 2 * f["D"] if dmajor else 4,
+                        1 if dmajor else f["D"], inputs[0].element_size(), rec["kernel_ms"]))
                 results[name] = rec
             emit(rec)
             del got, want
+        ok &= tent_probe_straddle_checks(case, dtype, f)
         del e, f, calls
         torch.cuda.empty_cache()
+    return ok
+
+
+def tent_probe_straddle_checks(case, dtype, f) -> bool:
+    """Kernel F at every law in both slab layouts, to the bit, on the
+    case's first M - 1 heads and all its rows but the last group: a count
+    of lane groups that does not fill the last warp, so groups straddle
+    its end (the record gives the launch's threads modulo 32)."""
+    from univs_tpu_torch.ops import msda_probes as mp
+
+    ok = True
+    N, M1, D = f["N"], f["M"] - 1, f["D"]
+    for law, (use_wa, *_) in mp.PROBE_LAWS.items():
+        group = f["P"] if use_wa else 1
+        R1 = f["R"] - group
+        xs, ys, was = (f[k][:, :R1, :M1].contiguous() for k in ("xs", "ys", "was"))
+        for layout in mp.SLAB_LAYOUTS:
+            slab = f[layout][:, :M1].contiguous()
+            args = (slab, xs, ys, was if use_wa else None, D, group, law, layout)
+            got = mp.msda_tent_probe_cuda(*args)
+            want = mp.msda_tent_probe_plain(*args)
+            # lanes a group (msda_tent_probe.cu): d-major min(D, 4) channels
+            # a lane, j-major a piece of min(16, D * size) bytes
+            size = slab.element_size()
+            pieces = D // min(D, 4) if layout == "dmajor" else D * size // min(16, D * size)
+            rec = dict({"check": "msda_tent_probe/straddle", "case": case, "law": law,
+                        "layout": layout, "dtype": str(dtype).replace("torch.", ""),
+                        "frames": N, "rows": R1, "heads": M1,
+                        "threads_mod_32": N * (R1 // group) * M1 * min(pieces, 32) % 32},
+                       **compare("msda_tent_probe", got, want, dtype))
+            emit(rec)
+            ok &= rec["pass"]
     return ok
 
 

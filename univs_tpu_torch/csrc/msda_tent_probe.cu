@@ -7,10 +7,10 @@
 //   probe_tent_v5.py:64       make_exp_kernel (pallas_call :163, entry run_exp)
 // Over one level H x W, per sample row r (pixel coordinates x, y and
 // attention weight wa), head m and channel d:
-//   mx_i = R(tent(i - x) * wa)            (tent_kernel: no wa)
+//   mx_i = R(tent(i - x) * wa)            (tent_kernel: no wa; 0 outside [0, W))
 //   t1_j = sum_i mx_i * V[j, i, d]        f32; R(t1_j) under kRoundT1
 //   ty_j = tent(j - y)                    f32; R(ty_j) under kRoundTy
-//   p2_j = R(ty_j * t1_j)
+//   p2_j = R(ty_j * t1_j)                 (0 for a row outside [0, H))
 //   row  = sum_j p2_j                     f32; R(row) under kRoundRow
 //   out[n, g, m, d] = sum of row over the G consecutive rows of group g
 //                     (f32, rows ascending; G = 1 for tent_kernel, P else)
@@ -24,102 +24,217 @@
 // The TPU kernels evaluate the tents densely over [rows, W] and
 // [rows, D*H] planes and contract them on the MXU (Mosaic cannot gather);
 // a tent is non-zero at two columns and two rows only, so on Hopper this
-// is a gather like kernels A and D: one warp per (frame, group, head), one
-// lane per channel (32/D groups a warp when D < 32), four predicated
-// corner loads per sample.  Dropping the zero taps is exact: a zero term
-// adds nothing to an f32 sum.  The slab is read in its probe's layout,
-// [N, M, W, D*H] d-major (element (i; d*H + j)) or [N, M, W, H*D] j-major
-// (element (i; j*D + d)): a corner read is then one coalesced segment
-// (j-major) or D strided elements (d-major).
+// is a gather with kernel A's design: a group of lanes serves one (frame,
+// group of rows, head), each lane a few of the head's channels, and it
+// computes each sample's floor, clamps, validity, tents, wa and their
+// rounding once for all of them.  An outside column or row is read at a
+// clamped address with weight 0 (the plain version's gather), so no load
+// waits on a branch.  The slab is read in its probe's layout:
+//   j-major [N, M, W, H*D], element (i; j*D + d): the channels of a corner
+//     are contiguous, so a lane owns a piece of min(16, D * size) bytes
+//     and reads each of the four corners as one load;
+//   d-major [N, M, W, D*H], element (i; d*H + j): the two rows of a
+//     channel are neighbours, so a lane owns min(D, 4) channels and reads
+//     the pair (j, j + 1) of each channel and column from one aligned
+//     8-byte word (a second load only when the pair straddles two words).
 //
-// Bound on the H100: compulsory traffic is slab + rows + output; as for
-// kernels A and D the real limit is the corner gathers served from L2.
-#include "common.cuh"
+// Bound on the H100: compulsory traffic is slab + rows + output.  The
+// probes draw their samples uniformly over the level, so nearly every
+// corner read is a 32-byte sector from L2 (two per corner j-major; one a
+// channel and column d-major, of which a sample uses 4 bytes): the sector
+// traffic, not the arithmetic, holds both layouts.
+#include "tent_gather.cuh"
 
 namespace univs {
 
 enum : int { kWa = 1, kRoundT1 = 2, kRoundTy = 4, kRoundRow = 8 };
 
-template <typename T, typename R>
-__global__ void __launch_bounds__(256)
-msda_tent_probe_kernel(const T* __restrict__ slab,     // [N, M, W, H*D], see strides
+// Elements p[0] and p[1] of a d-major column (rows jj and jj + 1 of one
+// channel) from the aligned 8-byte word holding p[0]; the word after it
+// is read only when the pair straddles the two (`two` = 0: p[1] is not
+// needed and may lie past the slab).
+__device__ __forceinline__ void ld_pair(const float* p, bool two, float& v0, float& v1) {
+  const uintptr_t a = (uintptr_t)p, base = a & ~(uintptr_t)7;
+  const bool odd = (a >> 2) & 1;
+  const float2 w = __ldg(reinterpret_cast<const float2*>(base));
+  const float e = (odd && two) ? __ldg(reinterpret_cast<const float*>(base + 8)) : 0.f;
+  v0 = odd ? w.y : w.x;
+  v1 = odd ? e : w.y;
+}
+__device__ __forceinline__ void ld_pair(const __nv_bfloat16* p, bool two, float& v0, float& v1) {
+  const uintptr_t a = (uintptr_t)p, base = a & ~(uintptr_t)7;
+  const int k = (int)(a >> 1) & 3;  // p[0]'s place in the word
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(base));
+  const uint32_t e =
+      (k == 3 && two) ? __ldg(reinterpret_cast<const unsigned int*>(base + 8)) : 0u;
+  const uint32_t lo = (k & 2) ? w.y : w.x, hi = (k & 2) ? e : w.y;
+  const uint32_t u = __funnelshift_r(lo, hi, (k & 1) * 16);
+  v0 = __uint_as_float(u << 16);
+  v1 = __uint_as_float(u & 0xffff0000u);
+}
+
+// GL lanes per (frame, group, head), `pieces` pieces of NE channels a
+// head; d-major (DMAJOR) or j-major slab.
+template <typename T, typename R, int NE, bool DMAJOR>
+__global__ void __launch_bounds__(256, 3)
+msda_tent_probe_kernel(const T* __restrict__ slab,     // [N, M, W, H*D]
                        const float* __restrict__ xs,   // [N, Rr, M]
                        const float* __restrict__ ys,   // [N, Rr, M]
                        const float* __restrict__ was,  // [N, Rr, M] (kWa only)
                        float* __restrict__ out,        // [N, Rr / G, M, D]
-                       int N, int Rr, int M, int H, int W, int D, int G, int sd, int sj,
+                       int N, int Rr, int M, int H, int W, int D, int G, int GL, int pieces,
                        int flags) {
-  const int lanes_per_item = D < 32 ? D : 32;
-  const int items_per_warp = 32 / lanes_per_item;
-  const int lane = threadIdx.x & 31;
-  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long item = warp * items_per_warp + lane / lanes_per_item;  // (n*NG + g)*M + m
+  const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long item = tid / GL;  // (n*NG + g)*M + m
   const int NG = Rr / G;
-  const long total = (long)N * NG * M;
-  if (item >= total) return;
-  const int dl = lane % lanes_per_item;
+  if (item >= (long)N * NG * M) return;
+  const int gl = (int)(tid - item * GL);
   const int m = (int)(item % M);
   const int g = (int)((item / M) % NG);
   const int n = (int)(item / ((long)M * NG));
   const size_t col = (size_t)H * D;  // elements between neighbouring columns i
   const T* vb = slab + ((size_t)n * M + m) * W * col;
-  const bool use_wa = flags & kWa;
+  const bool use_wa = flags & kWa, r_t1 = flags & kRoundT1, r_ty = flags & kRoundTy,
+             r_row = flags & kRoundRow, two = H > 1;
 
-  for (int d = dl; d < D; d += lanes_per_item) {
-    const T* vd = vb + (size_t)d * sd;
-    float acc = 0.f;
+  for (int pc = gl; pc < pieces; pc += GL) {
+    const int d0 = pc * NE;
+    float acc[NE];
+#pragma unroll
+    for (int c = 0; c < NE; ++c) acc[c] = 0.f;
+#pragma unroll 4
     for (int k = 0; k < G; ++k) {
       const size_t ri = ((size_t)n * Rr + (size_t)g * G + k) * M + m;
-      const float x = xs[ri], y = ys[ri];
+      const float x = __ldg(xs + ri), y = __ldg(ys + ri);
       // clamp before the int cast: a clamped tap lies outside the level
       const int x0 = (int)fminf(fmaxf(floorf(x), -2.f), (float)W);
       const int y0 = (int)fminf(fmaxf(floorf(y), -2.f), (float)H);
-      const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
+      const bool vx0 = (unsigned)x0 < (unsigned)W, vx1 = (unsigned)(x0 + 1) < (unsigned)W;
+      const bool vy0 = (unsigned)y0 < (unsigned)H, vy1 = (unsigned)(y0 + 1) < (unsigned)H;
+      const int xa = min(max(x0, 0), W - 1), xb = min(max(x0 + 1, 0), W - 1);
+      // v[row][column][channel]: rows y0, y0 + 1; columns xa, xb
+      float v[2][2][NE];
+      if constexpr (DMAJOR) {
+        // the pair (jj, jj + 1) holds every row of [0, H) that the sample
+        // touches; a row clamped into it takes the pair's other element
+        const int jj = max(min(y0, H - 2), 0);
+        const bool swap = y0 != jj;
+        const T* ca = vb + (size_t)xa * col + (size_t)d0 * H + jj;
+        const T* cb = vb + (size_t)xb * col + (size_t)d0 * H + jj;
+#pragma unroll
+        for (int c = 0; c < NE; ++c) {
+          float p, q;
+          ld_pair(ca + (size_t)c * H, two, p, q);
+          v[0][0][c] = swap ? q : p;
+          v[1][0][c] = swap ? p : q;
+          ld_pair(cb + (size_t)c * H, two, p, q);
+          v[0][1][c] = swap ? q : p;
+          v[1][1][c] = swap ? p : q;
+        }
+      } else {
+        constexpr int VB = NE * sizeof(T);
+        const int ya = min(max(y0, 0), H - 1), yb = min(max(y0 + 1, 0), H - 1);
+        const T* c0 = vb + d0;
+        const Piece<VB> c00 = ld_piece<VB>(c0 + ((size_t)xa * H + ya) * D);
+        const Piece<VB> c01 = ld_piece<VB>(c0 + ((size_t)xb * H + ya) * D);
+        const Piece<VB> c10 = ld_piece<VB>(c0 + ((size_t)xa * H + yb) * D);
+        const Piece<VB> c11 = ld_piece<VB>(c0 + ((size_t)xb * H + yb) * D);
+#pragma unroll
+        for (int c = 0; c < NE; ++c) {
+          v[0][0][c] = elem<T>(c00, c);
+          v[0][1][c] = elem<T>(c01, c);
+          v[1][0][c] = elem<T>(c10, c);
+          v[1][1][c] = elem<T>(c11, c);
+        }
+      }
       float tx0 = tent((float)x0, x), tx1 = tent((float)(x0 + 1), x);
       if (use_wa) {
-        const float wa = was[ri];
+        const float wa = __ldg(was + ri);
         tx0 = __fmul_rn(tx0, wa);
         tx1 = __fmul_rn(tx1, wa);
       }
       const float w0 = vx0 ? round_to<R>(tx0) : 0.f;
       const float w1 = vx1 ? round_to<R>(tx1) : 0.f;
-      float row = 0.f;
+      float ty0 = tent((float)y0, y), ty1 = tent((float)(y0 + 1), y);
+      if (r_ty) round2_to<R>(ty0, ty1);
+      float t1[2][NE];
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const int j = y0 + kk;
-        if (j < 0 || j >= H) continue;
-        const T* vr = vd + (size_t)j * sj;
-        const float a = vx0 ? to_f32(vr[(size_t)x0 * col]) : 0.f;
-        const float b = vx1 ? to_f32(vr[(size_t)(x0 + 1) * col]) : 0.f;
-        float t1 = __fadd_rn(__fmul_rn(w0, a), __fmul_rn(w1, b));
-        if (flags & kRoundT1) t1 = round_to<R>(t1);
-        float ty = tent((float)j, y);
-        if (flags & kRoundTy) ty = round_to<R>(ty);
-        row = __fadd_rn(row, round_to<R>(__fmul_rn(ty, t1)));
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < NE; ++c)
+          t1[r][c] = __fadd_rn(__fmul_rn(w0, v[r][0][c]), __fmul_rn(w1, v[r][1][c]));
+      if (r_t1) {
+#pragma unroll
+        for (int c = 0; c < NE; ++c) round2_to<R>(t1[0][c], t1[1][c]);
       }
-      if (flags & kRoundRow) row = round_to<R>(row);
-      acc = __fadd_rn(acc, row);
+      float row[NE];
+#pragma unroll
+      for (int c = 0; c < NE; ++c) {
+        float p2a = __fmul_rn(ty0, t1[0][c]), p2b = __fmul_rn(ty1, t1[1][c]);
+        round2_rows<R>(p2a, p2b, vy0, vy1);
+        row[c] = __fadd_rn(p2a, p2b);
+      }
+      if (r_row) {
+#pragma unroll
+        for (int c = 0; c + 1 < NE; c += 2) round2_to<R>(row[c], row[c + 1]);
+        if (NE % 2) row[NE - 1] = round_to<R>(row[NE - 1]);
+      }
+#pragma unroll
+      for (int c = 0; c < NE; ++c) acc[c] = __fadd_rn(acc[c], row[c]);
     }
-    out[item * D + d] = acc;
+    store_piece<float, NE>(out + item * D + d0, acc);
   }
 }
 
-template <typename T, typename R>
-int launch(const void* slab, const void* xs, const void* ys, const void* was, void* out, int N,
-           int Rr, int M, int H, int W, int D, int G, int dmajor, int flags,
-           cudaStream_t stream) {
-  if (D < 1 || (D < 32 ? 32 % D : D % 32) != 0 || G < 1 || Rr % G != 0 || H < 1 || W < 1)
-    return (int)cudaErrorInvalidValue;
-  if ((flags & kWa) && was == nullptr) return (int)cudaErrorInvalidValue;
-  const int sd = dmajor ? H : 1, sj = dmajor ? 1 : D;
-  const int items_per_warp = D < 32 ? 32 / D : 1;
-  const long warps = ((long)N * (Rr / G) * M + items_per_warp - 1) / items_per_warp;
+template <typename T, typename R, int NE, bool DMAJOR>
+int launch_ne(const T* slab, const float* xs, const float* ys, const float* was, float* out,
+              int N, int Rr, int M, int H, int W, int D, int G, int flags,
+              cudaStream_t stream) {
+  const int pieces = D / NE, GL = group_lanes(pieces);
+  const long threads_total = (long)N * (Rr / G) * M * GL;
   const int threads = 256;
-  const long blocks = (warps * 32 + threads - 1) / threads;
-  msda_tent_probe_kernel<T, R><<<(unsigned)blocks, threads, 0, stream>>>(
-      (const T*)slab, (const float*)xs, (const float*)ys, (const float*)was, (float*)out, N, Rr,
-      M, H, W, D, G, sd, sj, flags);
+  const long blocks = (threads_total + threads - 1) / threads;
+  if (blocks > 0)
+    msda_tent_probe_kernel<T, R, NE, DMAJOR><<<(unsigned)blocks, threads, 0, stream>>>(
+        slab, xs, ys, was, out, N, Rr, M, H, W, D, G, GL, pieces, flags);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename R>
+int launch(const void* slab_, const void* xs, const void* ys, const void* was_, void* out_,
+           int N, int Rr, int M, int H, int W, int D, int G, int dmajor, int flags,
+           cudaStream_t stream) {
+  if (!tent_head_ok(D) || G < 1 || Rr % G != 0 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((flags & kWa) && was_ == nullptr) return (int)cudaErrorInvalidValue;
+  const T* slab = (const T*)slab_;
+  const float *x = (const float*)xs, *y = (const float*)ys, *wa = (const float*)was_;
+  float* out = (float*)out_;
+  if (dmajor) {
+    // min(D, 4) channels a lane; results stored as one piece of NE floats
+    const int ne = D < 4 ? D : 4;
+    if ((uintptr_t)out % (4 * ne)) return (int)cudaErrorInvalidValue;
+    if (ne == 4) return launch_ne<T, R, 4, true>(slab, x, y, wa, out, N, Rr, M, H, W, D, G,
+                                                 flags, stream);
+    if (ne == 2) return launch_ne<T, R, 2, true>(slab, x, y, wa, out, N, Rr, M, H, W, D, G,
+                                                 flags, stream);
+    return launch_ne<T, R, 1, true>(slab, x, y, wa, out, N, Rr, M, H, W, D, G, flags, stream);
+  }
+  // j-major: a piece of min(16, D * size) bytes at an address of its size
+  const int bytes = D * (int)sizeof(T), vb = bytes < 16 ? bytes : 16;
+  const int ne = vb / (int)sizeof(T), oa = 4 * ne < 16 ? 4 * ne : 16;
+  if ((uintptr_t)slab % vb || (uintptr_t)out % oa) return (int)cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {
+    if (ne == 8) return launch_ne<T, R, 8, false>(slab, x, y, wa, out, N, Rr, M, H, W, D, G,
+                                                  flags, stream);
+  }
+  if (ne == 4) return launch_ne<T, R, 4, false>(slab, x, y, wa, out, N, Rr, M, H, W, D, G,
+                                                flags, stream);
+  if (ne == 2) return launch_ne<T, R, 2, false>(slab, x, y, wa, out, N, Rr, M, H, W, D, G,
+                                                flags, stream);
+  if (ne == 1) return launch_ne<T, R, 1, false>(slab, x, y, wa, out, N, Rr, M, H, W, D, G,
+                                                flags, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace univs

@@ -176,7 +176,12 @@ def msda_tent_base_cuda(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
                         loc: torch.Tensor, dequant: Optional[torch.Tensor] = None,
                         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Kernel D on the card: the arguments of ``msda_tent_base_plain``,
-    all contiguous, loc and dequant float32 -> [N, Lq, M*D] in ``dtype``."""
+    all contiguous, loc and dequant float32 -> [N, Lq, M*D] in ``dtype``.
+
+    A lane reads a piece of a head's channels (16 bytes of the int8 slab,
+    32 of a value, or the whole head when it is narrower) with loads of up
+    to 16 bytes, so D is a divisor or a multiple of 32 and the value is
+    aligned to min(16, D * size) bytes; any other D raises."""
     N, S, M, D = value.shape
     if loc.dim() != 6 or loc.shape[0] != N or loc.shape[2] != M or loc.shape[-1] != 3:
         raise ValueError(f"msda_tent_base: loc {tuple(loc.shape)} does not match value "
@@ -191,8 +196,14 @@ def msda_tent_base_cuda(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
         raise ValueError("msda_tent_base: an int8 value needs dequant [N, M, L], any other none")
     if int8 and (tuple(dequant.shape) != (N, M, L) or dequant.dtype != torch.float32):
         raise ValueError(f"msda_tent_base: dequant must be float32 [{N}, {M}, {L}]")
+    if not kernels.tent_head_ok(D):
+        raise ValueError(f"msda_tent_base: head size D={D} is neither a divisor nor a "
+                         "multiple of 32")
     dtype = dtype or value.dtype
     kernels.require_cuda("msda_tent_base", value, loc, dequant)
+    align = kernels.load_align(D, value)
+    if value.data_ptr() % align:
+        raise ValueError(f"msda_tent_base: the value must be {align}-byte aligned")
     out = torch.empty((N, Lq, M * D), dtype=dtype, device=value.device)
     code = kernels.dtype_code(out)
     fn = kernels.lib("msda_tent_base").msda_tent_base_launch

@@ -146,6 +146,18 @@ def stream_arg(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def tent_head_ok(D: int) -> bool:
+    """The head sizes kernels D and F take (``csrc/tent_gather.cuh``): a
+    divisor or a multiple of 32."""
+    return D >= 1 and (32 % D == 0 if D < 32 else D % 32 == 0)
+
+
+def load_align(D: int, t: torch.Tensor) -> int:
+    """The alignment in bytes that kernels D and F need of a tensor whose
+    heads of D channels a lane reads with loads of up to 16 bytes."""
+    return min(16, D * t.element_size())
+
+
 def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

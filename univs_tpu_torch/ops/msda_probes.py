@@ -269,12 +269,19 @@ def msda_tent_probe_cuda(slab: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
                          was: Optional[torch.Tensor], D: int, group: int, law: str,
                          layout: str) -> torch.Tensor:
     """Kernel F on the card: the arguments of ``msda_tent_probe_plain``,
-    all contiguous; D a multiple or divisor of 32."""
+    all contiguous; D a divisor or a multiple of 32 (any other D raises),
+    a j-major slab aligned to the min(16, D * size) bytes a lane reads."""
     _check_probe_args(slab, xs, ys, was, D, group, law, layout)
+    if not kernels.tent_head_ok(D):
+        raise ValueError(f"msda_tent_probe: head size D={D} is neither a divisor nor a "
+                         "multiple of 32")
     N, M, W, HD = slab.shape
     R = xs.shape[1]
     use_wa = PROBE_LAWS[law][0]
     kernels.require_cuda("msda_tent_probe", slab, xs, ys, was if use_wa else None)
+    align = kernels.load_align(D, slab)
+    if layout == "jmajor" and slab.data_ptr() % align:
+        raise ValueError(f"msda_tent_probe: a j-major slab must be {align}-byte aligned")
     flags = sum(bit for bit, on in zip(_FLAG_BITS, PROBE_LAWS[law][:4]) if on)
     out = torch.empty((N, R // group, M, D), dtype=_F32, device=slab.device)
     fn = kernels.lib("msda_tent_probe").msda_tent_probe_launch
