@@ -28,7 +28,11 @@ non-zero):
             level / y-window) and F (the separable tent probe laws: kernel,
             base, b16t1, b16all, exp, exp-b16) at the probes' geometry (the
             1/8 level, 5 frames, 8 heads, 4 points, D=32; bf16 timed, and
-            float32) and at a tiny shape, F also at every law in both slab
+            float32, timed for E) and at a tiny shape, E also on coincident
+            taps, footprints across chunk borders, 300 of 320 queries and
+            windows of 64 queries that hit and miss at D = 16, 24, 32 and
+            64 (its records name the body the wrapper ran and the plane
+            bound over the RQ rows), F also at every law in both slab
             layouts on a head and row count whose lane groups straddle the
             last warp; F and D bit-exact, their timed records with the
             sector traffic of their gathers;
@@ -39,7 +43,8 @@ non-zero):
               ``tools/`` (``univs_tpu_torch.tools.probe_tent_*.run``) at
               their own geometry, kernels E and F beside kernel A on the
               same inputs, each formulation's error against the float32
-              law within its tolerance;
+              law within its tolerance; E's records beside its function
+              bound and plane bound at each level;
             * the MSDA op's tent entry points at the encoder's shape
               (``impl='tent-int8'`` and ``level_impl='base'`` -> kernel D,
               ``impl='tent'`` -> kernel A);
@@ -540,17 +545,19 @@ PROBE_CASES = {
 }
 
 
-def plane_inputs(case, dtype):
-    """Kernel E's inputs: the psum probe's rows and raster slab of the
-    first (largest) level, and the window meta."""
+def plane_inputs(case, dtype, lid=0, Hw=None):
+    """Kernel E's inputs: the psum probe's rows and raster slab of level
+    ``lid`` (0: the first, largest), and the window meta of height ``Hw``
+    (the case's by default)."""
     import torch
 
     from univs_tpu_torch.ops import msda_probes
     from univs_tpu_torch.tools import probe_tent_psum
 
-    c = PROBE_CASES[case]
+    c = dict(PROBE_CASES[case])
+    c["Hw"] = Hw or c["Hw"]
     slab, rows, RQ, (H, W), _, _ = probe_tent_psum.level_inputs(
-        c["shapes"], 0, c["M"], c["P"], c["N"], c["D"], np.random.RandomState(1),
+        c["shapes"], lid, c["M"], c["P"], c["N"], c["D"], np.random.RandomState(1),
         torch.device("cuda"), dtype, c["bqq"])
     meta = msda_probes.window_meta(rows, c["M"], c["P"], H, W, c["Hw"], c["bqq"], c["subq"])
     return dict(c, slab=slab, rows=rows, RQ=RQ, H=H, W=W, meta=meta)
@@ -597,21 +604,123 @@ def probe_bound(inputs, out, ops) -> dict:
 
 
 def plane_work(x, window: bool) -> dict:
-    """Kernel E's own algorithmic work: the plane entries it visits (the
-    window's rows where a chunk hits, the whole level elsewhere), their
-    product with the value on the tensor cores, and the law's products
-    and sums per entry and point (2P; the narrow tents are negligible)."""
-    S = x["H"] * x["W"]
+    """Kernel E's own algorithmic work: the plane entries of the window's
+    rows where a chunk hits and of the whole level elsewhere, over all Qp
+    query rows (``plane_*``) and over the RQ rows the result depends on
+    (``plane_rq_*``); their product with the value (``*_flops``) at the
+    peak of the body the slab's dtype runs (``plane_peak``: bf16 tensor
+    cores, or float32 FMA), and the law's products and sums per entry and
+    point (2P; the narrow tents are negligible).  ``plane_rq_ms_at_peak``
+    is the formulation's bound (the plane bound)."""
+    S, Qp, RQ = x["H"] * x["W"], x["rows"].shape[1], x["RQ"]
     if window:
         k = np.where(x["meta"][..., 1].cpu().numpy() == 1, x["Hw"] * x["W"], S)
+        k = k.reshape(x["N"], Qp // x["subq"], x["M"])
+        rq_rows = np.clip(RQ - np.arange(Qp // x["subq"]) * x["subq"], 0, x["subq"])
         entries = float(k.sum()) * x["subq"]
+        entries_rq = float((k * rq_rows[None, :, None]).sum())
     else:
-        entries = float(x["N"] * x["M"] * x["rows"].shape[1] * S)
-    tensor = 2.0 * entries * x["D"]
-    build = 2.0 * x["P"] * entries
-    return {"plane_entries": entries, "plane_tensor_flops": tensor, "plane_build_ops": build,
-            "plane_tensor_ms_at_peak": tensor / BF16_TENSOR_FLOPS * 1e3,
-            "plane_build_ms_at_f32_peak": build / F32_FLOPS * 1e3}
+        entries = float(x["N"] * x["M"] * Qp * S)
+        entries_rq = float(x["N"] * x["M"] * RQ * S)
+    bf16 = str(x["slab"].dtype) == "torch.bfloat16"
+    rec = {"plane_peak": "bf16 tensor" if bf16 else "float32 FMA"}
+    peak = BF16_TENSOR_FLOPS if bf16 else F32_FLOPS
+    for key, e in (("plane", entries), ("plane_rq", entries_rq)):
+        flops = 2.0 * e * x["D"]
+        build = 2.0 * x["P"] * e
+        rec.update({f"{key}_entries": e, f"{key}_flops": flops, f"{key}_build_ops": build,
+                    f"{key}_ms_at_peak": flops / peak * 1e3,
+                    f"{key}_build_ms_at_f32_peak": build / F32_FLOPS * 1e3})
+    return rec
+
+
+def plane_level_bounds(level, Hw) -> dict:
+    """Kernel E's function bound and plane bound on the tools path's inputs
+    of one level of the probes (bf16, ``Hw`` None for the whole level)."""
+    import torch
+
+    c = PROBE_CASES["probe"]
+    e = plane_inputs("probe", torch.bfloat16, c["shapes"].index(tuple(level)), Hw)
+    out = torch.empty((e["N"], e["RQ"], e["M"], e["D"]), dtype=torch.float32, device="cuda")
+    ops = 2.0 * e["N"] * e["RQ"] * e["M"] * e["P"] * 4 * e["D"]
+    work = plane_work(e, Hw is not None)
+    return dict(probe_bound((e["slab"], e["rows"][:, :e["RQ"]]), out, ops),
+                plane_bound_ms=work["plane_rq_ms_at_peak"], plane_peak=work["plane_peak"])
+
+
+# kernel E's edges: a level of 16 x 20 (64-pixel chunks end inside rows),
+# 2 frames, 2 heads, 4 points, 320 query rows of which RQ = 300 are kept
+# (the second block of 256 queries holds one partial tile, the last block
+# of 64 a partial one), windows of 8 rows over chunks of 64 queries
+PLANE_EDGE = dict(H=16, W=20, M=2, P=4, N=2, Qp=320, RQ=300, Hw=8, subq=64)
+
+
+def plane_edge_inputs(D, dtype):
+    """Kernel E's edge rows: queries 0-15 with all four points in one
+    pixel cell (coincident taps), 16-31 with points whose taps straddle a
+    64-pixel chunk of the whole level or of the window (its kbeg is 40 for
+    those chunks) and a 16-pixel k-step, the first two query
+    chunks clustered in rows 2-9 (their windows hit), the others spread
+    over the level (they miss), rows RQ.. the probes' padding."""
+    import torch
+
+    from univs_tpu_torch.ops import msda_probes
+
+    c = PLANE_EDGE
+    N, M, P, H, W, Qp, RQ = (c[k] for k in ("N", "M", "P", "H", "W", "Qp", "RQ"))
+    rng = np.random.RandomState(5)
+    x = rng.uniform(-1.5, W + 0.5, (N, Qp, M, P))
+    y = rng.uniform(-1.5, H + 0.5, (N, Qp, M, P))
+    wa = rng.uniform(-1.0, 1.0, (N, Qp, M, P))
+    y[:, :128] = rng.uniform(3.0, 8.0, (N, 128, M, P))
+    x[:, :16] = np.floor(x[:, :16, :, :1]) + rng.uniform(0.0, 1.0, (N, 16, M, P))
+    y[:, :16] = np.floor(y[:, :16, :, :1]) + rng.uniform(0.0, 1.0, (N, 16, M, P))
+    # taps (s, s + 1) across the whole level's chunks (63, 127), the
+    # window's chunk (103) and k-step (87)
+    border = np.array([63, 103, 127, 87])
+    x[:, 16:32] = border % W + rng.uniform(0.0, 1.0, (N, 16, M, P))
+    y[:, 16:32] = border // W + rng.uniform(0.0, 1.0, (N, 16, M, P))
+    x[:, RQ:], y[:, RQ:], wa[:, RQ:] = -10.0, float(H // 2), 0.0
+    rows = np.concatenate([a.reshape(N, Qp, M * P) for a in (x, y, wa)], axis=2)
+    rows = torch.as_tensor(rows.astype(np.float32)).cuda()
+    slab = torch.as_tensor(rng.randn(N, M, H * W, D).astype(np.float32)).to(dtype).cuda()
+    meta = msda_probes.window_meta(rows, M, P, H, W, c["Hw"], c["subq"], c["subq"])
+    return dict(c, D=D, slab=slab, rows=rows, meta=meta)
+
+
+def plane_edge_checks() -> bool:
+    """Kernel E against its plain version (``TOL``) in both dtypes and
+    modes, whole level and windowed, on ``plane_edge_inputs`` at D = 32,
+    24, 16 and 64 (every product width the kernel builds: D rounded up to
+    8, 16, 32 or 64; D = 8 is the tiny case), and the window's hit rate
+    strictly between 0 and 1."""
+    import torch
+
+    from univs_tpu_torch.ops import msda_probes as mp
+
+    ok = True
+    for D in (32, 24, 16, 64):
+        for dtype in (torch.bfloat16, torch.float32):
+            e = plane_edge_inputs(D, dtype)
+            hit = float(e["meta"][..., 1].float().mean())
+            ok &= 0.0 < hit < 1.0
+            for mode in mp.PLANE_MODES:
+                want = mp.msda_tent_plane_plain(e["slab"], e["rows"], e["RQ"], e["W"], e["P"],
+                                                mode)
+                for window in (False, True):
+                    kw = dict(meta=e["meta"], Hw=e["Hw"], subq=e["subq"]) if window else {}
+                    got = mp.msda_tent_plane_cuda(e["slab"], e["rows"], e["RQ"], e["W"], e["P"],
+                                                  mode, **kw)
+                    torch.cuda.synchronize()
+                    rec = dict({"check": "msda_tent_plane/edges", "mode": mode,
+                                "window": window, "D": D, "RQ": e["RQ"], "Qp": e["Qp"],
+                                "window_hit": hit, "dtype": str(dtype).replace("torch.", ""),
+                                "body": mp.plane_body(dtype)},
+                               **compare("msda_tent_plane", got, want, dtype))
+                    emit(rec)
+                    ok &= rec["pass"]
+            del e
+    return ok
 
 
 def probe_kernel_checks(results: dict) -> bool:
@@ -670,8 +779,9 @@ def probe_kernel_checks(results: dict) -> bool:
                    "max_abs_err": err, "ref_max_abs": scale, "tol_rel": tol, "pass": passed}
             if window is not None:
                 rec.update(plane_work(e, window), window_hit=float(e["meta"][..., 1].float().mean())
-                           if window else None)
-            if timed:
+                           if window else None, body=mp.plane_body(dtype))
+            # bf16 timed for every kernel; kernel E's float32 modes as well
+            if timed or (case == "probe" and base == "msda_tent_plane"):
                 rec["kernel_ms"] = time_ms(kern, "cuda", iters=10)
                 rec["plain_ms"] = time_ms(plain, "cuda", iters=2, warmup=1)
                 rec.update(probe_bound(inputs, got, ops))
@@ -682,7 +792,11 @@ def probe_kernel_checks(results: dict) -> bool:
                     rec.update(gather_traffic(
                         f["N"] * f["R"] * f["M"], 2 * f["D"] if dmajor else 4,
                         1 if dmajor else f["D"], inputs[0].element_size(), rec["kernel_ms"]))
-                results[name] = rec
+                if timed:
+                    results[name] = rec
+                else:  # beside the bf16 modes in the kernels line, as <mode>-f32
+                    key = name.split("/", 1)[1] if "/" in name else "psum"
+                    results[f"msda_tent_plane/{key}-f32"] = rec
             emit(rec)
             del got, want
         ok &= tent_probe_straddle_checks(case, dtype, f)
@@ -742,7 +856,13 @@ def run_probe_path():
         expected[r["kernel"]] += r["calls"]
     counts_ok = check_launches("tools probes", launches, expected)
     counts_ok &= launches["msda_tent_plane"] > 0 and launches["msda_tent_probe"] > 0
+    bounds = {}
     for r in records:
+        if r["kernel"] == "msda_tent_plane":
+            key = (tuple(r["level"]), r.get("Hw"))
+            if key not in bounds:
+                bounds[key] = plane_level_bounds(*key)
+            r.update(bounds[key])
         emit(dict(r, path="tools probes"))
     out_ok = all(r["pass"] for r in records)
     # the card's reading: each formulation's ms per probe and level, kernel A beside it
@@ -1263,13 +1383,14 @@ def main() -> int:
     logs = kernels.build()
     for n, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"ptxas {n}: {line.strip()}")
     log(f"build: {len(logs)} kernel(s) in {time.perf_counter() - t0:.1f} s")
 
     results: dict = {}
     ok = kernel_checks(results)
     ok &= probe_kernel_checks(results)
+    ok &= plane_edge_checks()
     by_path = {}
     path_ok, by_path["tools probes"] = run_probe_path()
     ok &= path_ok

@@ -1,6 +1,7 @@
-"""The wrappers of kernels D (``msda_tent_base_cuda``) and F
-(``msda_tent_probe_cuda``) around the card, on the CPU, with a stand-in
-library that records the launch (no card is needed):
+"""The wrappers of kernels D (``msda_tent_base_cuda``), E
+(``msda_tent_plane_cuda``) and F (``msda_tent_probe_cuda``) around the
+card, on the CPU, with a stand-in library that records the launch (no
+card is needed):
 
 - each takes exactly the head sizes its kernel takes, a divisor or a
   multiple of 32 (``csrc/tent_gather.cuh:tent_head_ok``): a lane of the
@@ -13,7 +14,10 @@ library that records the launch (no card is needed):
 - the value (D) and the j-major slab (F) must be aligned to the
   min(16, D * size) bytes of a lane's loads; the d-major slab, read as
   aligned words around each element, need not be;
-- a launch that returns an error raises and counts nothing.
+- a launch that returns an error raises and counts nothing;
+- E's wrapper names the body it runs (``plane_body``: ``wgmma`` for
+  bfloat16, ``fma`` for float32) and passes it to the launch beside the
+  slab's dtype, which refuses a body that does not fit.
 """
 
 import pytest
@@ -41,6 +45,10 @@ class _FakeLib:
         return self.err
 
     def msda_tent_probe_launch(self, *a):
+        self.calls.append(a)
+        return self.err
+
+    def msda_tent_plane_launch(self, *a):
         self.calls.append(a)
         return self.err
 
@@ -164,13 +172,47 @@ def test_alignment_of_the_pieces(monkeypatch, which):
         assert len(fake.calls) == 1
 
 
-@pytest.mark.parametrize("kernel", ["msda_tent_base", "msda_tent_probe"])
+@pytest.mark.parametrize("kernel", ["msda_tent_base", "msda_tent_probe", "msda_tent_plane"])
 def test_wrapper_raises_when_the_launch_refuses(monkeypatch, kernel):
     _patch_launch(monkeypatch, err=1)  # cudaErrorInvalidValue
     before = kernels.LAUNCHES[kernel]
     with pytest.raises(RuntimeError, match="failed to launch"):
         if kernel == "msda_tent_base":
             da.msda_tent_base_cuda(*_base_args(32, "int8"))
-        else:
+        elif kernel == "msda_tent_probe":
             mp.msda_tent_probe_cuda(*_probe_args(32, "base", "dmajor"))
+        else:
+            mp.msda_tent_plane_cuda(torch.zeros((1, 2, 63, 8), dtype=torch.bfloat16),
+                                    torch.zeros((1, 64, 24)), 64, 9, 4, "psum")
     assert kernels.LAUNCHES[kernel] == before
+
+
+def test_plane_body_by_dtype():
+    assert mp.plane_body(torch.bfloat16) == "wgmma"
+    assert mp.plane_body(torch.float32) == "fma"
+    with pytest.raises(TypeError):
+        mp.plane_body(torch.float16)
+
+
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", mp.PLANE_MODES)
+def test_wrapper_launches_its_body(monkeypatch, mode, dtype, window):
+    """The launch gets the body's code, the slab's dtype code and the
+    arguments in the C interface's order; one launch is counted."""
+    fake = _patch_launch(monkeypatch)
+    N, M, P, H, W, Qp, RQ, D, Hw, subq = 1, 2, 4, 7, 9, 128, 100, 8, 3, 64
+    slab = torch.zeros((N, M, H * W, D), dtype=dtype)
+    rows = torch.zeros((N, Qp, 3 * M * P))
+    meta = torch.zeros((N, Qp // subq, M, 2), dtype=torch.int32) if window else None
+    kw = dict(meta=meta, Hw=Hw, subq=subq) if window else {}
+    before = kernels.LAUNCHES["msda_tent_plane"]
+    out = mp.msda_tent_plane_cuda(slab, rows, RQ, W, P, mode, **kw)
+    assert tuple(out.shape) == (N, RQ, M, D) and out.dtype == torch.float32
+    (body, code, outer, *ptrs, stream), = fake.calls
+    assert mp.PLANE_BODIES[body] == mp.plane_body(dtype) and code == kernels.dtype_code(slab)
+    assert outer == int(mode == "outer") and stream == 0
+    assert (ptrs[2] is None) == (not window)
+    assert ptrs[4:] == [N, Qp, RQ, M, P, H, W, D, subq if window else 0, Hw if window else 0]
+    assert kernels.LAUNCHES["msda_tent_plane"] == before + 1
+

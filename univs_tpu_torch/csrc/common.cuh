@@ -79,7 +79,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---------------------------------------------------------------------------
 // bf16 tensor-core tiles: mma.sync m16n8k16 (bf16 in, float32 accumulate)
-// and its fragment loaders (kernels B and E).  g = lane / 4 is the
+// and its fragment loaders (kernel B).  g = lane / 4 is the
 // fragment's row group and t = lane % 4 the thread in the group.
 // ---------------------------------------------------------------------------
 

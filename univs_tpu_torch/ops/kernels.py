@@ -48,8 +48,8 @@ _SIGNATURES = {
                      ctypes.c_float, _P],
     # dtype, int8, value, dequant, loc, out, N, S, Lq, M, D, P, L, shapes*, stream
     "msda_tent_base": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    # dtype, outer, slab, rows, meta, out, N, Qp, RQ, M, P, H, W, D, subq, Hw, stream
-    "msda_tent_plane": [_I, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    # body, dtype, outer, slab, rows, meta, out, N, Qp, RQ, M, P, H, W, D, subq, Hw, stream
+    "msda_tent_plane": [_I, _I, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
     # dtype, round_bf16, slab, xs, ys, was, out, N, R, M, H, W, D, G, dmajor, flags, stream
     "msda_tent_probe": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
 }
@@ -86,6 +86,13 @@ def _stale(name: str) -> bool:
     return any(os.path.getmtime(s) > t for s in srcs)
 
 
+def nvcc_command(src: str, out: str) -> list:
+    """The nvcc command that builds the kernel source ``src`` into the
+    shared library ``out`` (sm_90a, ``-Xptxas -v``)."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC, "-o", out, src]
+
+
 def build(names=KERNELS) -> Dict[str, str]:
     """Compile the named kernels that are missing or stale, all nvcc
     processes in parallel; raises with the compiler output on failure.
@@ -95,12 +102,9 @@ def build(names=KERNELS) -> Dict[str, str]:
     if not todo:
         return {}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for n in todo:
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC,
-               "-o", _lib_path(n) + ".tmp", os.path.join(CSRC, f"{n}.cu")]
+        cmd = nvcc_command(os.path.join(CSRC, f"{n}.cu"), _lib_path(n) + ".tmp")
         procs[n] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True)
     out, failed = {}, []

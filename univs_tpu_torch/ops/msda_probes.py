@@ -89,42 +89,51 @@ def window_meta(rows: torch.Tensor, M: int, P: int, H: int, W: int, Hw: int, bqq
     return torch.stack([ystart, ok], dim=-1)
 
 
+def tent_plane_plain(rows: torch.Tensor, m: int, M: int, P: int, H: int, W: int, mode: str,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Kernel E's plane for head ``m`` of the query rows [q, 3*M*P]
+    float32 of one frame -> [q, H*W] float32, rounded to ``dtype``: from
+    each point's x tents [q, W] and y tents [q, H] with the kernel's
+    products, the points summed in order."""
+    if mode not in PLANE_MODES:
+        raise ValueError(f"mode must be one of {PLANE_MODES}, got {mode!r}")
+    dev = rows.device
+    ii = torch.arange(W, dtype=_F32, device=dev)
+    jj = torch.arange(H, dtype=_F32, device=dev)
+    MP = M * P
+    x = rows[:, m * P:(m + 1) * P, None]
+    y = rows[:, MP + m * P:MP + (m + 1) * P, None]
+    wa = rows[:, 2 * MP + m * P:2 * MP + (m + 1) * P, None]
+    tx, ty = _tent(ii, x), _tent(jj, y)  # [q, P, W], [q, P, H]
+    if mode == "psum":
+        ax, ay = tx, ty * wa
+    else:
+        ax, ay = tx * wa, _round(ty, dtype)
+    acc = None
+    for p in range(P):
+        t = ay[:, p, :, None] * ax[:, p, None, :]  # [q, H, W]
+        acc = t if acc is None else acc + t
+    return _round(acc.reshape(-1, H * W), dtype)
+
+
 def msda_tent_plane_plain(slab: torch.Tensor, rows: torch.Tensor, RQ: int, W: int, P: int,
                           mode: str) -> torch.Tensor:
     """Plain version of kernel E.  slab [N, M, S, D] float32 / bfloat16
     (raster, S = H*W); rows [N, Qp, 3*M*P] float32 -> [N, RQ, M, D]
     float32.  Per (frame, head) and chunk of queries it builds the plane
-    from each point's x tents [q, W] and y tents [q, H] with the kernel's
-    products and point order, rounds it to the slab's dtype and multiplies
-    it with the value in float32.  A window does not change the result,
-    so this version has none."""
+    (``tent_plane_plain``) and multiplies it with the value in float32.
+    A window does not change the result, so this version has none."""
     if mode not in PLANE_MODES:
         raise ValueError(f"mode must be one of {PLANE_MODES}, got {mode!r}")
     N, M, S, D = slab.shape
     H = S // W
-    dev, dtype = slab.device, slab.dtype
-    ii = torch.arange(W, dtype=_F32, device=dev)
-    jj = torch.arange(H, dtype=_F32, device=dev)
-    out = torch.empty((N, RQ, M, D), dtype=_F32, device=dev)
-    MP = M * P
+    out = torch.empty((N, RQ, M, D), dtype=_F32, device=slab.device)
     for n in range(N):
         for m in range(M):
             v = slab[n, m].to(_F32)  # [S, D]
             for q0 in range(0, RQ, _PLANE_Q_CHUNK):
                 r = rows[n, q0:min(RQ, q0 + _PLANE_Q_CHUNK)]
-                x = r[:, m * P:(m + 1) * P, None]
-                y = r[:, MP + m * P:MP + (m + 1) * P, None]
-                wa = r[:, 2 * MP + m * P:2 * MP + (m + 1) * P, None]
-                tx, ty = _tent(ii, x), _tent(jj, y)  # [q, P, W], [q, P, H]
-                if mode == "psum":
-                    ax, ay = tx, ty * wa
-                else:
-                    ax, ay = tx * wa, _round(ty, dtype)
-                acc = None
-                for p in range(P):
-                    t = ay[:, p, :, None] * ax[:, p, None, :]  # [q, H, W]
-                    acc = t if acc is None else acc + t
-                plane = _round(acc.reshape(-1, S), dtype)
+                plane = tent_plane_plain(r, m, M, P, H, W, mode, slab.dtype)
                 out[n, q0:q0 + plane.shape[0], m] = plane @ v
     return out
 
@@ -146,6 +155,21 @@ def _check_plane_args(slab, rows, RQ, W, P, mode, meta, Hw, subq):
                          "0 < Hw <= H")
 
 
+PLANE_BODIES = ("fma", "wgmma")  # kernel E's bodies, by their launch code
+
+
+def plane_body(dtype: torch.dtype) -> str:
+    """The body kernel E runs for a slab of ``dtype``: ``"wgmma"`` for
+    bfloat16 (the plane's A fragments built in registers from the
+    footprints, ``wgmma`` from registers, V by TMA), ``"fma"`` for float32
+    (the plane tile in shared memory, FMA products)."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == _F32:
+        return "fma"
+    raise TypeError(f"msda_tent_plane: the slab must be float32 or bfloat16, got {dtype}")
+
+
 def msda_tent_plane_cuda(slab: torch.Tensor, rows: torch.Tensor, RQ: int, W: int, P: int,
                          mode: str, meta: Optional[torch.Tensor] = None, Hw: int = 0,
                          subq: int = 0) -> torch.Tensor:
@@ -153,7 +177,7 @@ def msda_tent_plane_cuda(slab: torch.Tensor, rows: torch.Tensor, RQ: int, W: int
     all contiguous, and optionally the window: ``meta`` int32
     [N, Qp / subq, M, 2] (``window_meta``), its height ``Hw`` and chunk
     ``subq``.  Qp a multiple of 64, D a multiple of 8 up to 64, P <= 4,
-    ``subq`` a multiple of 64."""
+    ``subq`` a multiple of 64.  Runs the body ``plane_body`` names."""
     _check_plane_args(slab, rows, RQ, W, P, mode, meta, Hw, subq)
     N, M, S, D = slab.shape
     kernels.require_cuda("msda_tent_plane", slab, rows, meta)
@@ -161,7 +185,8 @@ def msda_tent_plane_cuda(slab: torch.Tensor, rows: torch.Tensor, RQ: int, W: int
         raise ValueError("msda_tent_plane: the slab must be 16-byte aligned")
     out = torch.empty((N, RQ, M, D), dtype=_F32, device=slab.device)
     fn = kernels.lib("msda_tent_plane").msda_tent_plane_launch
-    err = fn(kernels.dtype_code(slab), int(mode == "outer"), slab.data_ptr(), rows.data_ptr(),
+    err = fn(PLANE_BODIES.index(plane_body(slab.dtype)), kernels.dtype_code(slab),
+             int(mode == "outer"), slab.data_ptr(), rows.data_ptr(),
              None if meta is None else meta.data_ptr(), out.data_ptr(), N, rows.shape[1], RQ, M,
              P, S // W, W, D, subq, Hw, kernels.stream_arg(slab.device))
     kernels.check("msda_tent_plane", err)
