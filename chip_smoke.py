@@ -64,9 +64,25 @@ non-zero):
               stitching alone on seeded windows of 15 and 60 valid slots
               (the random weights admit at most one entity), its cost per
               entity and frame;
+            * ``VOSDriver.run`` (VOS / PVOS) with the same model and a
+              seeded video: N=5 seeded elliptical GT targets first appearing
+              at frames 0, 0, 3, 11 and 20, 'prompt' timed (3 runs after a
+              warm-up) with one clip step timed alone, 'learn' and
+              'prompt+learn' once each, a PVOS-sized run of 24 targets; per
+              run the launches (A/B/C at 6 x window encodes), the label maps
+              and how many objects passed the first-appearance gate, the
+              consistency gate and the learn-branch match (0 is possible
+              with random weights, and shown);
+            * ``VOSDriver.run_grounding`` (RefVOS): 4 expressions through
+              ``TextPromptEncoder`` at the RN50x4 text geometry in float32
+              (timed alone), padded to capacity 4; 3 timed runs after a
+              warm-up with the peak device memory, and one run with the
+              previous clip's visual prompts;
   tiny    — each driver path against a reference on a small input: the
-            tiny config's ``run_vis`` / ``run_vss`` / ``run_vps`` in float32
-            on the card (through the kernels) and on the CPU (plain laws).
+            tiny config's ``run_vis`` / ``run_vss`` / ``run_vps`` /
+            ``VOSDriver.run`` / ``run_grounding`` in float32 on the card
+            (through the kernels) and on the CPU (plain laws); the
+            expressions tokenized once for both sides.
 
 Prints one JSON line per check, the ``kernels`` summary line and the card
 line, and last ``{"ok": true, "device": {...}}``.  Exits with a non-zero
@@ -1362,6 +1378,402 @@ def run_vps_path(model):
     return counts_ok and out_ok, launches
 
 
+# ---------------------------------------------------------------------------
+# prompt-guided paths: VOS / PVOS and RefVOS through VOSDriver
+# ---------------------------------------------------------------------------
+
+# DAVIS-17-sized targets: 5 objects, first appearing in the first clip and
+# mid-video (injection at frames 0, 3, 11 and 20)
+VOS_FAF = (0, 0, 3, 11, 20)
+PVOS_OBJECTS = 24
+EXPRESSIONS = ("a man in a red shirt riding a bike", "the brown dog running on the left",
+               "the second car from the right", "a small white boat near the shore")
+
+
+def elliptical_targets(faf, V, h4, w4, seed) -> np.ndarray:
+    """[N, V, h4, w4] uint8 GT masks at quarter resolution: object n a
+    seeded ellipse inside its own cell of a grid (so no two overlap) at
+    its first-appearance frame faf[n] (-1: never), zeros elsewhere."""
+    import math
+
+    rng = np.random.RandomState(seed)
+    N = len(faf)
+    cols = math.ceil(math.sqrt(N))
+    rows = math.ceil(N / cols)
+    ch, cw = h4 / rows, w4 / cols
+    yy, xx = np.mgrid[0:h4, 0:w4]
+    gt = np.zeros((N, V, h4, w4), np.uint8)
+    for n, f in enumerate(faf):
+        cy = (n // cols + rng.uniform(0.35, 0.65)) * ch
+        cx = (n % cols + rng.uniform(0.35, 0.65)) * cw
+        ry, rx = rng.uniform(0.2, 0.35) * ch, rng.uniform(0.2, 0.35) * cw
+        if f >= 0:
+            gt[n, f] = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+    return gt
+
+
+class GateCounts:
+    """Counts the clip step's decisions over one driver run, by wrapping
+    the driver's ``vos_clip_step`` while the ``with`` block runs: objects
+    written at their first appearance (``first_ok``), objects accumulated
+    through the consistency gate (``gated``) and learn-branch matches
+    (``cons_l``), as distinct objects and as (clip, object) pairs.  With
+    random weights these may be 0; the record shows it."""
+
+    def __enter__(self):
+        from univs_tpu_torch.inference import driver
+
+        self._module, self._step = driver, driver.vos_clip_step
+        self.aux = []
+
+        def step(*args, **kwargs):
+            pool, aux = self._step(*args, **kwargs)
+            self.aux.append(aux)
+            return pool, aux
+
+        driver.vos_clip_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self._module.vos_clip_step = self._step
+
+    def summary(self) -> dict:
+        import torch
+
+        out = {"clips": len(self.aux)}
+        for key in ("first_ok", "gated", "cons_l"):
+            got = [a[key] for a in self.aux if a.get(key) is not None]
+            if got:
+                st = torch.stack(got)
+                out[key] = {"objects": int(st.any(0).sum()), "clip_objects": int(st.sum())}
+        return out
+
+
+def gated_run(fn):
+    """(fn's result, its GateCounts summary)."""
+    with GateCounts() as g:
+        out = fn()
+    return out, g.summary()
+
+
+def check_label_maps(labels, gt, faf, V, H, W):
+    """[V, H, W] uint8 maps with labels in [0, N].  Returns (ok, the share
+    of each appearing object's GT pixels at its first frame that carry
+    its label).  Frame 0 holds nothing but the injected GT (the first
+    clip writes only frames after it), so the objects appearing there
+    must keep > 90 % of it; later objects compete with the accumulated
+    predictions of earlier ones and are only reported."""
+    N = len(faf)
+    ok = labels.shape == (V, H, W) and labels.dtype == np.uint8 and int(labels.max()) <= N
+    up = (H // gt.shape[2], W // gt.shape[3])
+    kept = {}
+    for n, f in enumerate(faf):
+        if f >= 0 and ok:
+            inside = np.kron(gt[n, f], np.ones(up, np.uint8)) > 0
+            kept[n] = float((labels[f][inside] == n + 1).mean())
+            if f == 0:
+                ok &= kept[n] > 0.9
+    return bool(ok), kept
+
+
+def clip_step_ms(driver, video, n, cls_emb=None, gt=None, faf=None, text_prompts=None) -> float:
+    """One clip step alone (CUDA events): the video's second clip, after
+    its first has run.  VOS: GT injected from ``gt`` / ``faf`` as the
+    driver does; RefVOS (``text_prompts``): every expression valid from
+    frame 0, as ``run_grounding`` sets the pool."""
+    import torch
+
+    from univs_tpu_torch.inference import memory_pool as mp
+    from univs_tpu_torch.inference.vos import inject_gt_first_appearance, vos_clip_step
+    from univs_tpu_torch.tools import time_ms
+
+    (H, W), T = video.shape[1:3], driver.T
+    mf, ms = driver.encode_window(torch.as_tensor(video[:driver.window]).cuda())
+    pool = driver._new_pool(n, 1, H, W)
+    kw = {}
+    if text_prompts is not None:
+        pool.valid[:] = True
+        pool.first_appear[:] = 0
+        kw = dict(text_prompts=text_prompts, task="grounding")
+    else:
+        gt_d = torch.as_tensor(gt).cuda()
+        faf_d = torch.as_tensor(np.asarray(faf), dtype=torch.int32, device="cuda")
+        ov = torch.ones(n, dtype=torch.bool, device="cuda")
+    cls_d = None if cls_emb is None else cls_emb.cuda()
+    with torch.no_grad():
+        for i in (0, 1):
+            frames = list(range(i, i + T))
+            feats = (mf[i:i + T], tuple(m[i:i + T] for m in ms))
+            if text_prompts is None:
+                inject_gt_first_appearance(pool, gt_d[:, frames].float(), faf_d, ov, frames, i)
+            if i == 0:
+                vos_clip_step(driver._modules, feats, pool, frames, 0, cls_d, driver.cc, **kw)
+                mp.shift_clip(pool, driver.stride)
+        return time_ms(lambda: vos_clip_step(driver._modules, feats, pool, frames, 1, cls_d,
+                                             driver.cc, **kw), "cuda", iters=10)
+
+
+def run_vos_path(model):
+    """``VOSDriver.run`` for UniVS-R50 VOS at full width with the VIS
+    phase's model (bf16, 640x960, V=30, T=5, stride 1, window 30): N=5
+    DAVIS-17-sized seeded elliptical targets first appearing at frames 0,
+    0, 3, 11 and 20; 'prompt' timed (3 runs after a warm-up, the first
+    counted), 'learn' and 'prompt+learn' once each, then a PVOS-sized run
+    of 24 targets (a warm-up, one timed).  Each run's launches are
+    checked (A, B, C 6 each), its label maps and its gate counts printed.
+    Returns (ok, launches of the counted 'prompt' run)."""
+    import torch
+
+    from univs_tpu_torch.inference.driver import VOSDriver
+
+    cfg = model.cfg
+    (H, W), V = FULL_HW, MAIN_PATH_FRAMES
+    layers = cfg.pixel_decoder.num_layers
+    video, _ = full_width_video(3)
+    cls_emb = torch.as_tensor(np.random.RandomState(3).randn(1, cfg.decoder.clip_cls_emb_dim)
+                              .astype(np.float32))
+    ok = True
+    rec = {"path": "VOSDriver.run", "config": "UniVS-R50 VOS (DAVIS-17-sized), bf16",
+           "frames": V, "height": H, "width": W}
+
+    def one_mode(mode, faf, seed, timed, warm):
+        gt = elliptical_targets(faf, V, H // 4, W // 4, seed)
+        ov = np.ones(len(faf), bool)
+        driver = VOSDriver(cfg, model, capacity=len(faf), num_classes=1, query_mode=mode)
+        run = lambda: driver.run(video, gt, faf, ov, cls_emb)  # noqa: E731
+        r = {"query_mode": mode, "objects": len(faf), "first_appear": list(faf),
+             "window_encodes": driver.num_window_encodes(V)}
+        if warm:
+            r["warmup_s"] = timed_runs(run, 1)[0]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (labels, r["gates"]), launches = counted(lambda: gated_run(run))
+        r["run_s"] = [time.perf_counter() - t0]
+        r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        r["launches_ok"] = check_launches(f"run_vos {mode} N={len(faf)}", launches,
+                                          expected_launches(r["window_encodes"], layers))
+        if timed > 1:
+            r["run_s"] += timed_runs(run, timed - 1)
+        r["fps_runs"] = [V / t for t in r["run_s"]]
+        r["objects_labelled"] = int(len(np.unique(labels)) - (labels == 0).any())
+        r["outputs_ok"], r["gt_kept_at_first_frame"] = check_label_maps(labels, gt, faf, V, H, W)
+        return r, launches, driver, gt
+
+    r, launches, driver, gt = one_mode("prompt", VOS_FAF, 3, timed=3, warm=True)
+    r["clip_step_ms"] = clip_step_ms(driver, video, len(VOS_FAF), cls_emb, gt, VOS_FAF)
+    rec["runs"] = [r]
+    for mode in ("learn", "prompt+learn"):
+        rec["runs"].append(one_mode(mode, VOS_FAF, 3, timed=1, warm=False)[0])
+    # PVOS: first appearances spread over the video's clip starts
+    pvos_faf = np.sort(np.random.RandomState(4).randint(0, V - driver.T, PVOS_OBJECTS))
+    pvos_faf = tuple(int(f) for f in pvos_faf)
+    pvos_faf = (0,) + pvos_faf[1:]
+    r, _, driver, gt = one_mode("prompt", pvos_faf, 4, timed=1, warm=True)
+    r["config"] = "PVOS-sized (24 targets)"
+    r["clip_step_ms"] = clip_step_ms(driver, video, PVOS_OBJECTS, cls_emb, gt, pvos_faf)
+    rec["runs"].append(r)
+    for r in rec["runs"]:
+        ok &= r["launches_ok"] and r["outputs_ok"]
+    rec["ok"] = bool(ok)
+    emit(rec)
+    torch.cuda.empty_cache()
+    return bool(ok), launches
+
+
+def run_grounding_path(model):
+    """``VOSDriver.run_grounding`` (RefVOS) at full width with the VIS
+    phase's model: 4 expressions through ``TextPromptEncoder`` at the
+    RN50x4 text geometry in float32 on the card (4 x 81 templates x 77
+    tokens, timed alone; the tokenizer's fallback ids, timed apart),
+    padded to capacity 4 by ``PrepareTargets.grounding_inputs``; 3 timed
+    runs after a warm-up (the first counted, with its peak memory: the
+    lang->vision attention holds float32 logits [5, 8, 312, 12600]) and
+    one run with the previous clip's visual prompts.  Returns (ok,
+    launches of the counted run)."""
+    import dataclasses
+
+    import torch
+
+    from univs_tpu_torch.inference.driver import VOSDriver
+    from univs_tpu_torch.models.clip_text import ClipTextEncoder, TextPromptEncoder
+    from univs_tpu_torch.models.tokenizer import pre_tokenize
+    from univs_tpu_torch.prompts.prepare_targets import PrepareTargets
+    from univs_tpu_torch.tools import time_ms
+
+    cfg = model.cfg
+    (H, W), V = FULL_HW, MAIN_PATH_FRAMES
+    layers = cfg.pixel_decoder.num_layers
+    video, _ = full_width_video(5)
+    n = len(EXPRESSIONS)
+    Dt = cfg.decoder.clip_cls_emb_dim  # 640, the RN50x4 tower's embedding
+    tpe = TextPromptEncoder(encoder=ClipTextEncoder(embed_dim=Dt), seed=5)
+    t0 = time.perf_counter()
+    tokens = pre_tokenize(list(EXPRESSIONS), tpe.tokenizer, text_type="expression")
+    tokenize_ms = (time.perf_counter() - t0) * 1e3
+    text_ms = time_ms(lambda: tpe.encode_tokens(tokens), "cuda", iters=5, warmup=2)
+    tp = PrepareTargets(np.zeros((1, 1), np.float32), tpe).grounding_inputs(EXPRESSIONS, pad_to=n)
+    rec = {"path": "VOSDriver.run_grounding", "config": "UniVS-R50 RefVOS, bf16; text tower "
+           "RN50x4 float32", "frames": V, "height": H, "width": W, "expressions": n,
+           "text_tokens": list(tokens.shape), "tokenizer_has_vocab": tpe.tokenizer.has_vocab,
+           "tokenize_ms_host": tokenize_ms, "text_encode_ms": text_ms,
+           "text_embs": list(tp.embs.shape),
+           "text_prompts_distinct": distinct_prompts(tp.embs[0], n)}
+    ok = (bool(torch.isfinite(tp.embs).all()) and tuple(tp.embs.shape) == (1, n, 78, Dt)
+          and rec["text_prompts_distinct"])
+
+    def check(masks):
+        return bool(masks.shape == (n, V, H, W) and masks.dtype == np.uint8 and masks.max() <= 1)
+
+    driver = VOSDriver(cfg, model, capacity=n, num_classes=1)
+    run = lambda d: d.run_grounding(video, tp.embs, tp.valid, n_expressions=n)  # noqa: E731
+    rec["window_encodes"] = driver.num_window_encodes(V)
+    rec["warmup_s"] = timed_runs(lambda: run(driver), 1)[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (masks, rec["gates"]), launches = counted(lambda: gated_run(lambda: run(driver)))
+    rec["run_s"] = [time.perf_counter() - t0]
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ok &= check_launches("run_grounding", launches, expected_launches(rec["window_encodes"], layers))
+    rec["run_s"] += timed_runs(lambda: run(driver), 2)
+    rec["fps_runs"] = [V / t for t in rec["run_s"]]
+    rec["clip_step_ms"] = clip_step_ms(driver, video, n, text_prompts=tp)
+    rec["mask_fraction"] = masks.reshape(n, -1).mean(-1).tolist()
+    ok &= check(masks)
+
+    prev_cfg = dataclasses.replace(cfg, inference=dataclasses.replace(
+        cfg.inference, enabled_prev_visual_prompts_for_grounding=True))
+    prev = VOSDriver(prev_cfg, model, capacity=n, num_classes=1)
+    t0 = time.perf_counter()
+    (masks_prev, gates_prev), launches_prev = counted(lambda: gated_run(lambda: run(prev)))
+    prev_rec = {"run_s": time.perf_counter() - t0, "gates": gates_prev,
+                "mask_fraction": masks_prev.reshape(n, -1).mean(-1).tolist()}
+    prev_rec["launches_ok"] = check_launches("run_grounding prev visual prompts", launches_prev,
+                                             expected_launches(rec["window_encodes"], layers))
+    ok &= prev_rec["launches_ok"] and check(masks_prev)
+    rec["prev_visual_prompts"] = prev_rec
+    rec["ok"] = bool(ok)
+    emit(rec)
+    del tpe
+    torch.cuda.empty_cache()
+    return bool(ok), launches
+
+
+def tiny_vos_setup():
+    """The tiny config for the prompt-guided driver (T=2, stride 1, a
+    6-frame window), a seeded 8-frame 64x96 video, GT for three objects
+    first appearing at frames 0, 0 and 3 and one that never appears."""
+    import dataclasses
+
+    from univs_tpu_torch.config import tiny_test_config
+
+    cfg = tiny_test_config()
+    cfg = dataclasses.replace(
+        cfg, inference=dataclasses.replace(cfg.inference, num_frames=2, clip_stride=1,
+                                           num_frames_window=6),
+        prompt=dataclasses.replace(cfg.prompt, num_prev_frames_memory=3))
+    V, H, W = 8, 64, 96
+    video = np.random.RandomState(8).randint(0, 256, (V, H, W, 3)).astype(np.uint8)
+    faf = (0, 0, 3, -1)
+    return cfg, video, faf, elliptical_targets(faf, V, H // 4, W // 4, seed=8)
+
+
+def min_iou(a_masks, b_masks) -> float:
+    """Smallest IoU over paired binary masks (1 where both are empty)."""
+    out = 1.0
+    for a, b in zip(a_masks, b_masks):
+        union = int((a | b).sum())
+        out = min(out, float((a & b).sum() / union) if union else 1.0)
+    return out
+
+
+def reference_check_vos() -> bool:
+    """``VOSDriver.run`` on the tiny config in float32, card (through the
+    kernels) vs CPU (plain laws), same seeded weights, video and GT: the
+    same objects labelled, each object's mask on each frame with IoU >=
+    0.99."""
+    from univs_tpu_torch.inference.driver import VOSDriver
+
+    cfg, video, faf, gt = tiny_vos_setup()
+    cls_emb = np.random.RandomState(9).randn(1, cfg.decoder.clip_cls_emb_dim).astype(np.float32)
+    ov = np.ones(len(faf), bool)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        d = VOSDriver(cfg, None, capacity=len(faf), num_classes=1, query_mode="prompt+learn",
+                      device=dev, seed=4)
+        if dev == "cuda":
+            outs[dev], launches = counted(lambda: d.run(video, gt, faf, ov, cls_emb))
+        else:
+            outs[dev] = d.run(video, gt, faf, ov, cls_emb)
+    got, want = outs["cuda"], outs["cpu"]
+    launched = all(launches[k] > 0 for k in ENCODER_KERNELS)
+    objs = sorted(set(np.unique(want).tolist()) - {0})
+    iou = min(min_iou([g == o for g in got], [w == o for w in want]) for o in range(1, len(faf) + 1))
+    ok = (launched and objs == sorted(set(np.unique(got).tolist()) - {0}) and len(objs) >= 1
+          and iou >= 0.99)
+    emit({"check": "run_vos_tiny_cuda_vs_cpu", "objects_cpu": objs,
+          "objects_cuda": sorted(set(np.unique(got).tolist()) - {0}), "kernels_launched": launched,
+          "min_mask_iou": iou, "pass": bool(ok)})
+    return bool(ok)
+
+
+def distinct_prompts(embs, n: int) -> bool:
+    """The first ``n`` prompt rows of ``embs`` [capacity, 1 + 77, D]
+    ([sentence; words]) are non-zero and pairwise different, so the
+    driver gets ``n`` real expressions rather than copies of one."""
+    import torch
+
+    rows = embs[:n].flatten(1)
+    return bool(rows.abs().amax(1).gt(0).all()) and all(
+        not torch.equal(rows[a], rows[b]) for a in range(n) for b in range(a))
+
+
+def reference_check_grounding() -> bool:
+    """``VOSDriver.run_grounding`` on the tiny config in float32, card vs
+    CPU: two expressions tokenized once (the fallback ids hold within one
+    process) and encoded by the same seeded tiny text tower on each side,
+    padded to capacity 3; the same expressions segmented, each mask on
+    each frame with IoU >= 0.99."""
+    import torch
+
+    from univs_tpu_torch.inference.driver import VOSDriver
+    from univs_tpu_torch.models.clip_text import ClipTextEncoder, TextPromptEncoder
+    from univs_tpu_torch.models.tokenizer import pre_tokenize
+
+    cfg, video, _, _ = tiny_vos_setup()
+    Dt = cfg.decoder.clip_cls_emb_dim
+    tokens = None
+    outs, emb_err = {}, None
+    for dev in ("cuda", "cpu"):
+        tpe = TextPromptEncoder(encoder=ClipTextEncoder(embed_dim=Dt, width=32, heads=4,
+                                                        num_layers=2), device=dev, seed=6)
+        if tokens is None:
+            tokens = pre_tokenize(list(EXPRESSIONS[:2]), tpe.tokenizer, text_type="expression")
+        word, eot = tpe.encode_tokens(tokens)
+        embs = torch.cat([eot.mean(1)[:, None], word[:, 0]], dim=1)  # [sentence; words]
+        embs = torch.cat([embs, torch.zeros_like(embs[:1])])[None]  # padded to 3
+        valid = torch.tensor([[True, True, False]])
+        d = VOSDriver(cfg, None, capacity=3, num_classes=1, device=dev, seed=4)
+        if dev == "cuda":
+            cuda_embs = embs.cpu()
+            distinct = distinct_prompts(embs[0], 2)
+            outs[dev], launches = counted(lambda: d.run_grounding(video, embs, valid,
+                                                                  n_expressions=2))
+        else:
+            emb_err = float((cuda_embs - embs).abs().max())
+            outs[dev] = d.run_grounding(video, embs, valid, n_expressions=2)
+    got, want = outs["cuda"], outs["cpu"]
+    launched = all(launches[k] > 0 for k in ENCODER_KERNELS)
+    iou = min(min_iou(g.astype(bool), w.astype(bool)) for g, w in zip(got, want))
+    ok = (launched and distinct and got.shape == want.shape and bool(want.any())
+          and emb_err <= 1e-4 and iou >= 0.99)
+    emit({"check": "run_grounding_tiny_cuda_vs_cpu", "expressions": 2,
+          "text_prompts_distinct": distinct, "text_embs_max_abs_err": emb_err,
+          "kernels_launched": launched,
+          "mask_fraction_cpu": want.reshape(2, -1).mean(-1).tolist(), "min_mask_iou": iou,
+          "pass": bool(ok)})
+    return bool(ok)
+
+
 def main() -> int:
     import torch
 
@@ -1398,7 +1810,8 @@ def main() -> int:
     ok &= path_ok
     path_ok, by_path["run_vis"], vis_driver = run_main_path()
     ok &= path_ok
-    for name, run in (("run_vss", run_vss_path), ("run_vps", run_vps_path)):
+    for name, run in (("run_vss", run_vss_path), ("run_vps", run_vps_path),
+                      ("run_vos", run_vos_path), ("run_grounding", run_grounding_path)):
         path_ok, by_path[name] = run(vis_driver.model)
         ok &= path_ok
     del vis_driver
@@ -1406,6 +1819,8 @@ def main() -> int:
     ok &= reference_check()
     ok &= reference_check_vss()
     ok &= reference_check_vps()
+    ok &= reference_check_vos()
+    ok &= reference_check_grounding()
 
     rows = []
     for name in kernels.KERNELS:

@@ -32,7 +32,9 @@ import torch.nn.functional as F
 from univs_tpu_torch.config import UniVSConfig
 from univs_tpu_torch.inference import memory_pool as mp
 from univs_tpu_torch.inference.entity import EntityClipConfig, entity_clip_step
+from univs_tpu_torch.inference.vos import inject_gt_first_appearance, vos_clip_step
 from univs_tpu_torch.models.univs import UniVSModel, build_model, compute_dtype_of
+from univs_tpu_torch.structures import TextPrompts
 from univs_tpu_torch.utils import rle
 from univs_tpu_torch.utils.device import resolve_device
 
@@ -69,23 +71,16 @@ def _upsample_threshold_pack(logits: torch.Tensor, image_size, out_size, padded_
     return torch.cat(outs, dim=0)
 
 
-class EntityDriver:
-    """Category-guided VIS / VPS / VSS over one video.
+class _StreamingDriver:
+    """What the category-guided and the prompt-guided drivers share: the
+    model on the device, the window encode and the one clip / window /
+    emission schedule."""
 
-    Args:
-        cfg: UniVSConfig
-        params: a ``UniVSModel`` already built, its state_dict (e.g. from
-            ``utils.weights.state_dict_from_flax``), or None for the
-            port's seeded init (``seed``)
-        num_classes: K of the category bank slice
-        capacity: entity slots E
-        device: None -> the card (raises without one); "cpu" explicitly
-        thing_class_ids: 1-based thing classes of a panoptic dataset,
-            ``run_vps``'s default
-    """
+    # the JAX package's VIS loop re-encodes a window when the clip's last
+    # real frame passes it (min(i + T, V)); its VOS loop when i + T does
+    tail_clamped_encode = True
 
-    def __init__(self, cfg: UniVSConfig, params=None, num_classes: int = 1, capacity: int = 40,
-                 device=None, seed: int = 0, thing_class_ids: Optional[Sequence[int]] = None):
+    def __init__(self, cfg: UniVSConfig, params, device, seed: int):
         self.device = resolve_device(device)
         self.cfg = cfg
         if isinstance(params, UniVSModel):
@@ -93,33 +88,12 @@ class EntityDriver:
         else:
             self.model = build_model(cfg, params, seed=seed, device=self.device)
         self.dtype = compute_dtype_of(cfg)
-        self.num_classes = num_classes
-        self.capacity = capacity
-        self.thing_class_ids = None if thing_class_ids is None else tuple(thing_class_ids)
         inf = cfg.inference
         self.T = inf.num_frames
         self.stride = inf.clip_stride
         self.window = inf.num_frames_window
         self.out_window = max(self.window - self.T, self.T)
-        self.cc = EntityClipConfig(
-            num_queries=cfg.decoder.num_queries,
-            topk_candidates=inf.topk_per_video,
-            num_prev_frames_memory=cfg.prompt.num_prev_frames_memory,
-            apply_cls_thres=inf.apply_cls_thres,
-            newly_thres=inf.newly_entity_thres,
-            consistency_thres=inf.consistency_thres[0],
-            nms_thres=inf.nms_thres,
-            num_dense_points=cfg.prompt.num_dense_points_test,
-            clip_stride=self.stride,
-            num_frames=self.T,
-            detect_newly_interval_frames=inf.detect_newly_interval_frames,
-        )
-        # the VPS panoptic newly-entity variant (reference dispatch
-        # inference_video_entity.py:367-370)
-        self.cc_pixel = dataclasses.replace(self.cc, variant="pixel")
         self._modules = (self.model.pixel_decoder, self.model.decoder)
-
-    # ------------------------------------------------------------------
 
     @torch.no_grad()
     def encode_window(self, frames: torch.Tensor):
@@ -144,7 +118,8 @@ class EntityDriver:
             is_last = i + self.T >= V
             clip_idx = np.minimum(np.arange(i, i + self.T), V - 1)
             new_window = None
-            if min(i + self.T, V) > window_range[1]:
+            end = min(i + self.T, V) if self.tail_clamped_encode else i + self.T
+            if end > window_range[1]:
                 new_window = i
                 window_range = (i, i + self.window)
             offset = i - emitted_total
@@ -165,8 +140,81 @@ class EntityDriver:
             }
             i += self.stride
 
+    @torch.no_grad()
+    def _clip_loop(self, frames_d: torch.Tensor, pool: mp.EntityMemory, clip_step, on_emit) -> None:
+        """The clip loop over one video on the device: the window encode
+        when a clip needs one, ``clip_step(feats, clip)`` on ``pool``,
+        then per due emission ``on_emit(start, n_out)`` before
+        ``evict_window`` drops exactly n_out frames (the trailing T
+        overlap frames stay and keep accumulating), and ``shift_clip``
+        unless it is the last clip.  ``on_emit`` must copy what it keeps:
+        the pool is updated in place."""
+        V = frames_d.shape[0]
+        feats_window = None
+        for c in self._iter_clips(V):
+            if c["new_window"] is not None:
+                i0 = c["new_window"]
+                idx = torch.as_tensor(np.minimum(np.arange(i0, i0 + self.window), V - 1),
+                                      device=self.device)
+                feats_window = self.encode_window(frames_d[idx])
+            mf_w, ms_w = feats_window
+            rel = torch.as_tensor(c["rel"], device=self.device)
+            clip_step((mf_w[rel], tuple(m[rel] for m in ms_w)), c)
+            for start, n_out in c["emits"]:
+                on_emit(start, n_out)
+                mp.evict_window(pool, n_out)
+            if not c["is_last"]:
+                mp.shift_clip(pool, self.stride)
+
     def num_window_encodes(self, V: int) -> int:
         return sum(c["new_window"] is not None for c in self._iter_clips(V))
+
+    def _new_pool(self, capacity: int, num_classes: int, H: int, W: int) -> mp.EntityMemory:
+        return mp.create_entity_memory(
+            capacity, num_classes, self.cfg.decoder.hidden_dim, (H // 4, W // 4),
+            window=self.out_window + self.T, num_prompt_points=self.cc.num_dense_points,
+            embd_history=8, prompt_history=self.T + self.stride, device=self.device,
+        )
+
+
+class EntityDriver(_StreamingDriver):
+    """Category-guided VIS / VPS / VSS over one video.
+
+    Args:
+        cfg: UniVSConfig
+        params: a ``UniVSModel`` already built, its state_dict (e.g. from
+            ``utils.weights.state_dict_from_flax``), or None for the
+            port's seeded init (``seed``)
+        num_classes: K of the category bank slice
+        capacity: entity slots E
+        device: None -> the card (raises without one); "cpu" explicitly
+        thing_class_ids: 1-based thing classes of a panoptic dataset,
+            ``run_vps``'s default
+    """
+
+    def __init__(self, cfg: UniVSConfig, params=None, num_classes: int = 1, capacity: int = 40,
+                 device=None, seed: int = 0, thing_class_ids: Optional[Sequence[int]] = None):
+        super().__init__(cfg, params, device, seed)
+        self.num_classes = num_classes
+        self.capacity = capacity
+        self.thing_class_ids = None if thing_class_ids is None else tuple(thing_class_ids)
+        inf = cfg.inference
+        self.cc = EntityClipConfig(
+            num_queries=cfg.decoder.num_queries,
+            topk_candidates=inf.topk_per_video,
+            num_prev_frames_memory=cfg.prompt.num_prev_frames_memory,
+            apply_cls_thres=inf.apply_cls_thres,
+            newly_thres=inf.newly_entity_thres,
+            consistency_thres=inf.consistency_thres[0],
+            nms_thres=inf.nms_thres,
+            num_dense_points=cfg.prompt.num_dense_points_test,
+            clip_stride=self.stride,
+            num_frames=self.T,
+            detect_newly_interval_frames=inf.detect_newly_interval_frames,
+        )
+        # the VPS panoptic newly-entity variant (reference dispatch
+        # inference_video_entity.py:367-370)
+        self.cc_pixel = dataclasses.replace(self.cc, variant="pixel")
 
     def _emit(self, pool: mp.EntityMemory, out_frames: int, divide: bool):
         """A copy of the first ``out_frames`` window frames, fp16, divided
@@ -189,11 +237,7 @@ class EntityDriver:
         this video's compute."""
         V, H, W = frames.shape[:3]
         dev = self.device
-        pool = mp.create_entity_memory(
-            self.capacity, self.num_classes, self.cfg.decoder.hidden_dim, (H // 4, W // 4),
-            window=self.out_window + self.T, num_prompt_points=self.cc.num_dense_points,
-            embd_history=8, prompt_history=self.T + self.stride, device=dev,
-        )
+        pool = self._new_pool(self.capacity, self.num_classes, H, W)
         # the caller's dtype is kept: uint8 frames move 4x fewer bytes and
         # are normalized on the device inside the window encode
         frames_d = torch.as_tensor(frames).to(dev)
@@ -203,35 +247,24 @@ class EntityDriver:
             thing_mask = torch.as_tensor(thing_mask, dtype=torch.bool, device=dev)
             cc = self.cc_pixel
 
-        feats_window = None
         emitted: List[torch.Tensor] = []
         emit_starts: List[int] = []
         emit_scores: List[torch.Tensor] = []
         emit_valids: List[torch.Tensor] = []
-        first = True
-        for c in self._iter_clips(V):
-            if c["new_window"] is not None:
-                i0 = c["new_window"]
-                idx = torch.as_tensor(np.minimum(np.arange(i0, i0 + self.window), V - 1), device=dev)
-                feats_window = self.encode_window(frames_d[idx])
-            mf_w, ms_w = feats_window
-            rel = torch.as_tensor(c["rel"], device=dev)
-            feats = (mf_w[rel], tuple(m[rel] for m in ms_w))
-            entity_clip_step(self._modules, feats, pool, c["clip_idx"], c["offset"], first,
+
+        def clip_step(feats, c):
+            entity_clip_step(self._modules, feats, pool, c["clip_idx"], c["offset"], c["i"] == 0,
                              cls_emb, cc, thing_mask)
-            first = False
-            for start, n_out in c["emits"]:
-                # emit + evict exactly n_out frames: the trailing T overlap
-                # frames stay in the pool and keep accumulating
-                win, scores, valid = self._emit(pool, n_out, divide)
-                mp.evict_window(pool, n_out)
-                emitted.append(win)
-                emit_scores.append(scores)
-                if valid is not None:
-                    emit_valids.append(valid)
-                emit_starts.append(start)
-            if not c["is_last"]:
-                mp.shift_clip(pool, self.stride)
+
+        def on_emit(start, n_out):
+            win, scores, valid = self._emit(pool, n_out, divide)
+            emitted.append(win)
+            emit_scores.append(scores)
+            if valid is not None:
+                emit_valids.append(valid)
+            emit_starts.append(start)
+
+        self._clip_loop(frames_d, pool, clip_step, on_emit)
 
         next_dev = None
         if next_frames is not None:
@@ -356,6 +389,135 @@ class EntityDriver:
         return assemble_vps_results(emitted, emit_starts, emit_scores, emit_valids, V,
                                     thing_class_ids, self.cfg.inference.overlap_threshold,
                                     image_size, out_size, (H, W))
+
+
+class VOSDriver(_StreamingDriver):
+    """Prompt-guided VOS / PVOS (``run``: GT masks at first appearance)
+    and RefVOS (``run_grounding``: expressions as text prompts) over one
+    video, the host loop of the JAX package's ``VOSDriver``: a window of
+    ``num_frames_window`` frames encoded when ``i + T`` passes it,
+    ``vos_clip_step`` once per clip at ``clip_offset = i - emitted``, the
+    emission ``while``, ``shift_clip`` unless it is the last clip.  The
+    pool is updated in place; every emitted window is an fp16 copy taken
+    before ``evict_window`` / ``shift_clip`` mutate it.  The label maps
+    and per-expression masks are upsampled and thresholded on the device
+    frame by frame, as the JAX package does on the host.
+
+    Args:
+        cfg: UniVSConfig
+        params: a ``UniVSModel`` already built, its state_dict, or None
+            for the port's seeded init (``seed``)
+        capacity: pool slots (the number of objects or expressions, padded)
+        num_classes: K of ``cls_emb``
+        query_mode: 'prompt' | 'learn' | 'prompt+learn' (VOS back end)
+        device: None -> the card (raises without one); "cpu" explicitly
+    """
+
+    tail_clamped_encode = False
+
+    def __init__(self, cfg: UniVSConfig, params=None, capacity: int = 1, num_classes: int = 1,
+                 query_mode: str = "prompt", device=None, seed: int = 0):
+        super().__init__(cfg, params, device, seed)
+        self.capacity = capacity
+        self.num_classes = num_classes
+        self.query_mode = query_mode
+        self.cc = EntityClipConfig(
+            num_queries=cfg.decoder.num_queries,
+            num_prev_frames_memory=cfg.prompt.num_prev_frames_memory,
+            num_dense_points=cfg.prompt.num_dense_points_test,
+            clip_stride=self.stride, num_frames=self.T,
+            prev_visual_prompts_for_grounding=cfg.inference.enabled_prev_visual_prompts_for_grounding,
+        )
+
+    def _stream(self, frames, pool, clip_step) -> List:
+        """The clip loop over one video; ``clip_step(feats, clip)`` runs
+        one clip on ``pool``.  Returns [(start, fp16 window copy)]."""
+        emitted = []
+        self._clip_loop(torch.as_tensor(frames).to(self.device), pool, clip_step,
+                        lambda start, n_out: emitted.append(
+                            (start, pool.mask_logits[:, :n_out].to(torch.float16))))
+        return emitted
+
+    @torch.no_grad()
+    def run(self, frames, gt_masks_14, faf, obj_valid, cls_emb, image_size=None,
+            out_size=None) -> np.ndarray:
+        """frames [V, H, W, 3]; gt_masks_14 [N, V, H/4, W/4] binary (only
+        first-appearance frames need data); faf [N] first-appear frames
+        (-1 never); obj_valid [N].  Returns per-frame label maps [V,
+        out_h, out_w] uint8 (0 = background, i + 1 = object i)."""
+        V, H, W = frames.shape[:3]
+        image_size = tuple(image_size or (H, W))
+        out_size = tuple(out_size or image_size)
+        dev = self.device
+        pool = self._new_pool(self.capacity, self.num_classes, H, W)
+        gt = torch.as_tensor(np.asarray(gt_masks_14)).to(dev)
+        faf_d = torch.as_tensor(np.asarray(faf), dtype=torch.int32, device=dev)
+        ov_d = torch.as_tensor(np.asarray(obj_valid), dtype=torch.bool, device=dev)
+        cls_emb = torch.as_tensor(cls_emb).to(device=dev, dtype=torch.float32)
+
+        def clip_step(feats, c):
+            idx = torch.as_tensor(c["clip_idx"], device=dev)
+            inject_gt_first_appearance(pool, gt[:, idx].to(torch.float32), faf_d, ov_d,
+                                       c["clip_idx"], c["offset"])
+            vos_clip_step(self._modules, feats, pool, c["clip_idx"], c["offset"], cls_emb, self.cc,
+                          query_mode=self.query_mode)
+
+        emitted = self._stream(frames, pool, clip_step)
+        labels = torch.zeros((V, *out_size), dtype=torch.uint8, device=dev)
+        for start, win in emitted:
+            for k in range(min(win.shape[1], V - start)):
+                logit = _upsample_logits_device(win[:, k], image_size, out_size, (H, W))
+                lab = torch.argmax(logit, dim=0) + 1  # first maximum, as np.argmax
+                labels[start + k] = torch.where(logit.amax(0) <= 0, 0, lab).to(torch.uint8)
+        return labels.cpu().numpy()
+
+    @torch.no_grad()
+    def run_grounding(self, frames, text_embs, text_valid, cls_emb=None,
+                      n_expressions: Optional[int] = None, image_size=None,
+                      out_size=None) -> np.ndarray:
+        """RefVOS: expressions as prompts, no GT injection; every
+        expression "appears" at frame 0.  text_embs [1, capacity, 1+77,
+        Dt] (``PrepareTargets.grounding_inputs(pad_to=capacity)``),
+        text_valid [1, capacity].  Returns per-expression binary masks
+        [n_expressions, V, out_h, out_w] uint8."""
+        V, H, W = frames.shape[:3]
+        image_size = tuple(image_size or (H, W))
+        out_size = tuple(out_size or image_size)
+        if int(text_embs.shape[1]) != self.capacity:
+            raise ValueError(f"pad the text prompts to the driver capacity {self.capacity}, "
+                             f"got {tuple(text_embs.shape)}")
+        N = n_expressions or self.capacity
+        dev = self.device
+        pool = self._new_pool(self.capacity, self.num_classes, H, W)
+        pool.valid[:N] = True
+        pool.first_appear[:N] = 0
+        tp = TextPrompts(embs=torch.as_tensor(text_embs).to(device=dev, dtype=torch.float32),
+                         valid=torch.as_tensor(text_valid).to(device=dev, dtype=torch.bool))
+        if cls_emb is not None:
+            cls_emb = torch.as_tensor(cls_emb).to(device=dev, dtype=torch.float32)
+
+        def clip_step(feats, c):
+            vos_clip_step(self._modules, feats, pool, c["clip_idx"], c["offset"], cls_emb, self.cc,
+                          text_prompts=tp, task="grounding")
+
+        emitted = self._stream(frames, pool, clip_step)
+        out = torch.zeros((N, V, *out_size), dtype=torch.uint8, device=dev)
+        for start, win in emitted:
+            for k in range(min(win.shape[1], V - start)):
+                logit = _upsample_logits_device(win[:N, k], image_size, out_size, (H, W))
+                out[:, start + k] = (logit > 0).to(torch.uint8)
+        return out.cpu().numpy()
+
+
+def _upsample_logits_device(mask_logits: torch.Tensor, image_size, out_size, padded_size):
+    """[n, h4, w4] logits -> [n, out_h, out_w] float32 on their device:
+    bilinear to the padded size, crop, bilinear to the output size (the
+    JAX package's ``_upsample_logits``, the same calls)."""
+    m = mask_logits.to(torch.float32)[None]
+    m = F.interpolate(m, size=tuple(padded_size), mode="bilinear", align_corners=False)
+    m = m[:, :, : image_size[0], : image_size[1]]
+    m = F.interpolate(m, size=tuple(out_size), mode="bilinear", align_corners=False)
+    return m[0]
 
 
 def vps_thing_mask(thing_class_ids, num_classes: int) -> np.ndarray:
@@ -522,13 +684,9 @@ def _resize_labels_nearest(labels: np.ndarray, out_size) -> np.ndarray:
 
 
 def _upsample_logits(mask_logits: np.ndarray, image_size, out_size, padded_size) -> np.ndarray:
-    """[n, h4, w4] logits -> [n, out_h, out_w] float32: bilinear to the
-    padded size, crop, bilinear to the output size (save_results_vps)."""
-    m = torch.from_numpy(mask_logits.astype(np.float32))[None]
-    m = F.interpolate(m, size=tuple(padded_size), mode="bilinear", align_corners=False)
-    m = m[:, :, : image_size[0], : image_size[1]]
-    m = F.interpolate(m, size=tuple(out_size), mode="bilinear", align_corners=False)
-    return m[0].numpy()
+    """``_upsample_logits_device`` on a host array (save_results_vps)."""
+    return _upsample_logits_device(torch.from_numpy(mask_logits), image_size, out_size,
+                                   padded_size).numpy()
 
 
 # ---------------------------------------------------------------------------

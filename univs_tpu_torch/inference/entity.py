@@ -44,7 +44,7 @@ def mask_quality_scores(mask_logits: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class EntityClipConfig:
     """Knobs of the clip step (the JAX package's fields, less its
-    measurement-only ``ablate`` and the RefVOS grounding switch)."""
+    measurement-only ``ablate``)."""
 
     num_queries: int = 200
     topk_candidates: int = 25
@@ -61,6 +61,9 @@ class EntityClipConfig:
     num_frames: int = 5
     # newly-entity detection: 'instance' (VIS) or 'pixel' (VPS panoptic)
     variant: str = "instance"
+    # RefVOS: concat the prev-clip visual prompt kv ahead of the text kv
+    # (ENABLED_PREV_VISUAL_PROMPTS_FOR_GROUNDING, decoder_univs.py:736-748)
+    prev_visual_prompts_for_grounding: bool = False
     detect_newly_interval_frames: int = 1
 
 
@@ -264,7 +267,7 @@ def _max_iou_with_pool(pool, clip_offset, masks):
     """Each candidate's largest mask IoU (logit > 0, over the clip's
     frames) with a valid pool entity -> [Qc]."""
     T = masks.shape[1]
-    win = pool.mask_logits[:, clip_offset:clip_offset + T]
+    win = mp.window_slice(pool.mask_logits, clip_offset, T)
     pool_bin = (win > 0).reshape(pool.capacity, -1).to(torch.float32)
     cand_bin = (masks > 0).reshape(masks.shape[0], -1).to(torch.float32)
     # exact counts: float32 products of 0/1 with float32 accumulation
@@ -278,9 +281,9 @@ def _accumulate_candidate_masks(pool, clip_offset, c_masks, c_quality, cand2slot
     T = c_masks.shape[1]
     slots = cand2slot[gate]
     nonblank = (c_masks > 0).flatten(2).any(-1).to(pool.occurrence.dtype)  # [Qc, T]
-    win = pool.mask_logits[:, clip_offset:clip_offset + T]
+    win = mp.window_slice(pool.mask_logits, clip_offset, T)
     win.index_add_(0, slots, c_masks[gate].to(win.dtype))
-    pool.occurrence[:, clip_offset:clip_offset + T].index_add_(0, slots, nonblank[gate])
+    mp.window_slice(pool.occurrence, clip_offset, T).index_add_(0, slots, nonblank[gate])
     pool.quality_sum.index_add_(0, slots, c_quality[gate].to(pool.quality_sum.dtype))
 
 
@@ -305,7 +308,7 @@ def _reencode_prompts(pool, grid_feats, grid_pos, clip_offset, n_update, T, cc: 
     # key frames beyond max(1, T - stride) never commit (k < n_update)
     n_keys = min(T, max(1, T - cc.clip_stride))
     for k in range(n_keys):
-        msk = (pool.mask_logits[:, clip_offset + k] > 0).to(torch.float32)
+        msk = (mp.window_slice(pool.mask_logits, clip_offset + k, 1)[:, 0] > 0).to(torch.float32)
         occur = msk.flatten(1).any(-1)
         sample = sample_visual_prompts(grid_feats[k], grid_pos[k], msk, occur, R)
         upd = pool.valid & sample.valid & (k < n_update)

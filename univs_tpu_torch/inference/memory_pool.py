@@ -141,9 +141,12 @@ def read_clip_queries(pool: EntityMemory, t: int):
 # ---------------------------------------------------------------------------
 
 
-def _window(x: torch.Tensor, clip_offset: int, t: int) -> torch.Tensor:
-    assert 0 <= clip_offset and clip_offset + t <= x.shape[1], (clip_offset, t, x.shape)
-    return x[:, clip_offset:clip_offset + t]
+def window_slice(x: torch.Tensor, clip_offset: int, t: int) -> torch.Tensor:
+    """View of the ``t`` window frames a clip at ``clip_offset`` reads
+    (dim 1), from the start ``jax.lax.dynamic_slice_in_dim`` takes: the
+    offset clamped to [0, W - t]."""
+    s = min(max(int(clip_offset), 0), x.shape[1] - t)
+    return x[:, s:s + t]
 
 
 def accumulate_clip_masks(pool: EntityMemory, clip_offset: int, masks: torch.Tensor,
@@ -153,9 +156,9 @@ def accumulate_clip_masks(pool: EntityMemory, clip_offset: int, masks: torch.Ten
     averaging for gated entities (reference: inference_video_entity.py:493-515)."""
     T = masks.shape[1]
     nonblank = (masks > 0).flatten(2).any(-1).to(pool.occurrence.dtype)  # [E, T]
-    win = _window(pool.mask_logits, clip_offset, T)
+    win = window_slice(pool.mask_logits, clip_offset, T)
     win += torch.where(update[:, None, None, None], masks.to(win.dtype), 0.0)
-    occ = _window(pool.occurrence, clip_offset, T)
+    occ = window_slice(pool.occurrence, clip_offset, T)
     occ += torch.where(update[:, None], nonblank, 0.0)
     old = pool.embds[:, -1]
     nonblank_e = (old != 0).any(-1)
@@ -243,9 +246,9 @@ def admit_entities(pool: EntityMemory, clip_offset: int, frame_idx: int, masks: 
     admit = is_new & (cand_rank < n_free) & (slot_for_cand < E)
 
     slots = slot_for_cand[admit]
-    win = _window(pool.mask_logits, clip_offset, T)
+    win = window_slice(pool.mask_logits, clip_offset, T)
     win[slots] = masks[admit].to(win.dtype)
-    occ = _window(pool.occurrence, clip_offset, T)
+    occ = window_slice(pool.occurrence, clip_offset, T)
     occ[slots] = 1.0
     pool.embds[slots, -1] = embds_mean[admit].to(pool.embds.dtype)
     pool.valid[slots] = True

@@ -1,6 +1,7 @@
 """UniVS video transformer decoder (counterpart of
-``univs_tpu/models/decoder.py``), tasks 'detection' (learnable queries)
-and 'sot' (visual prompts through ProCA).
+``univs_tpu/models/decoder.py``), tasks 'detection' (learnable queries,
+or category text prompts), 'sot' (visual prompts through ProCA) and
+'grounding' (RefVOS expressions as text prompts).
 
 Batch-major tokens ``[B*T, Q, C]``; the spatio-temporal self-attention
 runs on ``[B, Q*T, C]`` with a static block bias (q-major tokens); the
@@ -8,9 +9,14 @@ masked cross-attention's allow-mask comes from the previous layer's mask
 logits computed at the attention resolution from PRE-DOWNSAMPLED mask
 features (bilinear resize is linear, so this equals resizing the
 full-resolution logits).  ProCA applies no kv mask: blank entries attend
-as zero-vector tokens, as in the reference.  Module names follow the
-flax tree so the weight bridge maps them one to one; the text-path
-modules exist for that mapping (the text path itself is not ported).
+as zero-vector tokens, as in the reference.  Text prompts are projected
+to the vision width (``text_norm`` -> ``text2vis_projection``), attend
+to every level's tokens of each frame (``lang2vision``), and their
+sentence token becomes the prompt query; at inference the grounding
+task fuses each prompt query's masks with those of its most similar
+learnable query (l4p), on the full-resolution masks and on the next
+layer's attention mask alike.  Module names follow the flax tree so the
+weight bridge maps them one to one.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from univs_tpu_torch.models.transformer_layers import (
     SelfAttentionBlock,
 )
 from univs_tpu_torch.ops.position_encoding import SinePositionEncoding3D
-from univs_tpu_torch.structures import VisualPrompts
+from univs_tpu_torch.structures import TextPrompts, VisualPrompts
 
 
 def build_self_attn_bias(num_learnable: int, num_prompt: int, t: int, mask_type: str, task: str,
@@ -66,7 +72,7 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 class UniVSDecoder(nn.Module):
     def __init__(self, hidden_dim=256, num_queries=200, num_layers=9, num_heads=8, ffn_dim=2048,
                  pre_norm=False, mask_dim=256, num_feature_levels=3, text_emb_dim=640,
-                 self_attn_mask_type="sep", num_max_frames=128):
+                 self_attn_mask_type="sep", num_max_frames=128, l4p_fusion=True):
         super().__init__()
         C = hidden_dim
         self.hidden_dim = C
@@ -74,6 +80,7 @@ class UniVSDecoder(nn.Module):
         self.num_layers = num_layers
         self.num_feature_levels = num_feature_levels
         self.self_attn_mask_type = self_attn_mask_type
+        self.l4p_fusion = l4p_fusion
         self.query_feat = nn.Parameter(torch.zeros(num_queries, C))
         self.query_embed = nn.Parameter(torch.zeros(num_queries, C))
         self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, C))
@@ -90,7 +97,6 @@ class UniVSDecoder(nn.Module):
         self.decoder_norm = nn.LayerNorm(C, eps=1e-5)
         self.mask_embed = MLP(C, C, mask_dim, 3)
         self.vis2text_projection = nn.Linear(C, text_emb_dim)
-        # text path (weights mapped by the bridge; the path is not ported yet)
         self.text_norm = nn.LayerNorm(text_emb_dim, eps=1e-5)
         self.text2vis_projection = nn.Linear(text_emb_dim, C)
         self.lang2vision = CrossAttentionBlock(C, num_heads, False)
@@ -111,6 +117,27 @@ class UniVSDecoder(nn.Module):
         feats = x_finest + self.level_embed[self.num_feature_levels - 1].to(x_finest.dtype)
         pos = self._pe(t, h, w, frame_indices)
         return feats.reshape(b, t, h, w, C), pos.to(x_finest.dtype)
+
+    def _encode_text_prompts(self, text_prompts: TextPrompts, src_all: torch.Tensor, b: int,
+                             t: int):
+        """Text embeddings [B, Qp, L, Dt] -> vision space, lang->vision
+        cross-attention over every level's tokens of each frame
+        (src_all [B*T, S, C]; decoder_univs.py:659-744).  Returns
+        (queries [B, Qp, T, C] = the sentence token = query_pos, kv
+        [B, Qp, L, T, C], kv_valid [B, Qp, L, T])."""
+        B, Qp, L, _ = text_prompts.embs.shape
+        dtype = self.query_feat.dtype
+        proj = self.text2vis_projection(self.text_norm(text_prompts.embs.to(dtype)))
+        C = proj.shape[-1]
+        x = proj[:, None].expand(B, t, Qp, L, C).reshape(b * t, Qp * L, C)
+        x = self.lang2vision(x, src_all)
+        kv = x.reshape(b, t, Qp, L, C).permute(0, 2, 3, 1, 4)  # [B, Qp, L, T, C]
+        queries = kv[:, :, 0]  # the sentence token leads each stack
+        if text_prompts.word_valid is not None:
+            kv_valid = text_prompts.word_valid[..., None].expand(B, Qp, L, t)
+        else:
+            kv_valid = text_prompts.valid[:, :, None, None].expand(B, Qp, L, t)
+        return queries, kv, kv_valid
 
     def _proca(self, i, output, query_pos, kv, kv_pe, b, t):
         """Prompt cross-attention over each prompt's [self; L kv] set (no
@@ -149,26 +176,47 @@ class UniVSDecoder(nn.Module):
         new_p = layer(out_p.reshape(b * t * Qp, 1, C), keys, query_pos=q_pos, pos=key_pos)
         return torch.cat([output[:, :Ql], new_p.reshape(b * t, Qp, C)], dim=1)
 
-    def _prediction_heads(self, output, mask_features, mask_features_small, cls_emb, b, t,
-                          need_outputs):
+    def _prediction_heads(self, output, mask_features, mask_features_small, task, cls_emb,
+                          exp_sentence, b, t, need_outputs):
         """Per-layer heads + the next layer's boolean attention allow-mask
-        [B*T, 1, Q, h*w] (decoder_univs.py:498-567)."""
+        [B*T, 1, Q, h*w] (decoder_univs.py:498-567).  Grounding scores
+        each query against the raw sentence embeddings (no normalisation
+        at inference) and applies the l4p fusion (decoder_univs.py:536-551)
+        to the full-resolution masks and to the allow-mask's logits."""
         Q = output.shape[1]
+        Ql = self.num_queries
         dec = self.decoder_norm(output)
         membed = self.mask_embed(dec).reshape(b, t, Q, -1)
         logits = masks = embds_raw = None
         if need_outputs:
-            q = _normalize(self.vis2text_projection(dec))
-            k = _normalize(cls_emb)
-            logits = q @ k.to(q.dtype).T
-            logits = logits.reshape(b, t, Q, -1).mean(dim=1) * torch.exp(self.cls_temp)
+            cls_feats = self.vis2text_projection(dec)
+            if task != "grounding":
+                logits = _normalize(cls_feats) @ _normalize(cls_emb).to(cls_feats.dtype).T
+                logits = logits.reshape(b, t, Q, -1).mean(dim=1) * torch.exp(self.cls_temp)
+            else:
+                cf = cls_feats.reshape(b, t, Q, -1).mean(dim=1)
+                logits = cf @ exp_sentence.to(cf.dtype).transpose(1, 2)  # [B, Q, Qe]
             H, W, Cm = mask_features.shape[2:]
             masks = membed @ mask_features.reshape(b, t, H * W, Cm).transpose(-1, -2)
             masks = masks.reshape(b, t, Q, H, W).transpose(1, 2)  # [B, Q, T, H, W]
             embds_raw = dec.reshape(b, t, Q, -1).transpose(1, 2)
+
+        l4p_idx = None
+        if task == "grounding" and self.l4p_fusion and Q > Ql:
+            norm = _normalize(dec)
+            sim = (norm @ norm[:, Ql:].transpose(1, 2)).reshape(b, t, Q, -1).mean(dim=1)
+            l4p_idx = torch.argmax(sim[:, :Ql], dim=1)  # [B, Qp], first maximum
+            if need_outputs:
+                learn = torch.take_along_dim(masks, l4p_idx[:, :, None, None, None], dim=1)
+                masks = torch.cat([masks[:, :Ql], (masks[:, Ql:] + learn) / 2.0], dim=1)
+
         h, w, Cm = mask_features_small.shape[2:]
         m_small = membed @ mask_features_small.reshape(b, t, h * w, Cm).transpose(-1, -2)
-        allowed = torch.sigmoid(m_small.to(torch.float32)) >= 0.5  # [B, T, Q, hw]
+        m_small = m_small.to(torch.float32)  # [B, T, Q, hw]
+        if l4p_idx is not None:  # mirror the fusion on the allow-mask's logits
+            learn = torch.take_along_dim(m_small, l4p_idx[:, None, :, None], dim=2)
+            m_small = torch.cat([m_small[:, :, :Ql], (m_small[:, :, Ql:] + learn) / 2.0], dim=2)
+        allowed = torch.sigmoid(m_small) >= 0.5
         allowed = allowed | ~allowed.any(dim=-1, keepdim=True)
         bias = allowed.reshape(b * t, 1, Q, h * w)
         return logits, masks, embds_raw, bias
@@ -176,9 +224,12 @@ class UniVSDecoder(nn.Module):
     def forward(self, x_levels: Sequence[torch.Tensor], mask_features: torch.Tensor,
                 frame_indices: torch.Tensor, task: str = "detection",
                 visual_prompts: Optional[VisualPrompts] = None,
-                cls_emb: Optional[torch.Tensor] = None) -> Dict:
-        if task not in ("detection", "sot"):
-            raise NotImplementedError(f"decoder task {task!r} is not ported yet")
+                cls_emb: Optional[torch.Tensor] = None,
+                text_prompts: Optional[TextPrompts] = None) -> Dict:
+        """x_levels: 3 maps [B*T, H_l, W_l, C] coarse to fine; mask_features
+        [B*T, H/4, W/4, Cm]; frame_indices [B, T]; task 'detection' |
+        'sot' | 'grounding'; cls_emb [K, Dt] (the class bank, unless
+        grounding).  Returns 'pred_logits', 'pred_masks', 'pred_embds'."""
         assert len(x_levels) == self.num_feature_levels
         C = self.hidden_dim
         dtype = self.query_feat.dtype
@@ -200,7 +251,24 @@ class UniVSDecoder(nn.Module):
         output = self.query_feat[None].expand(bt, Ql, C)
         query_pos = self.query_embed[None].expand(bt, Ql, C)
 
-        prompts = visual_prompts if task == "sot" else None
+        prompts = None
+        if task in ("detection", "grounding") and text_prompts is not None:
+            q, kv, kv_valid = self._encode_text_prompts(text_prompts, torch.cat(srcs, dim=1), b, t)
+            if task == "grounding" and visual_prompts is not None:
+                # prev-clip visual kv AHEAD of the text tokens per expression
+                # (decoder_univs.py:736-748); no pe on the text path
+                vkv, vkvv = visual_prompts.kv, visual_prompts.kv_valid
+                if vkv.shape[3] == 1 and t > 1:
+                    vkv = vkv.expand(*vkv.shape[:3], t, vkv.shape[4])
+                    vkvv = vkvv.expand(*vkvv.shape[:3], t)
+                kv = torch.cat([vkv.to(kv.dtype), kv], dim=2)
+                kv_valid = torch.cat([vkvv.to(kv_valid.dtype), kv_valid], dim=2)
+            prompts = VisualPrompts(queries=q, query_pos=q, kv=kv, kv_pe=None, kv_valid=kv_valid,
+                                    valid=text_prompts.valid)
+            task_emb = self.prompt_detection if task == "detection" else self.prompt_grounding
+        elif visual_prompts is not None:
+            prompts = visual_prompts
+            task_emb = self.prompt_sot
         Qp = 0
         kv = kv_pe = None
         if prompts is not None:
@@ -208,12 +276,16 @@ class UniVSDecoder(nn.Module):
             Qp = prompts.num_prompts
             kv = prompts.kv.to(dtype)
             kv_pe = None if prompts.kv_pe is None else prompts.kv_pe.to(dtype)
-            pq = (prompts.queries.to(dtype) + self.prompt_sot).transpose(1, 2).reshape(bt, Qp, C)
+            pq = (prompts.queries.to(dtype) + task_emb).transpose(1, 2).reshape(bt, Qp, C)
             pqp = prompts.query_pos.to(dtype).transpose(1, 2).reshape(bt, Qp, C)
             output = torch.cat([output, pq], dim=1)
             query_pos = torch.cat([query_pos, pqp], dim=1)
             output = self._proca(0, output, query_pos, kv, kv_pe, b, t)
             query_pos = torch.cat([query_pos[:, :Ql], output[:, Ql:]], dim=1)
+        # sentence embedding per expression in CLIP space (pre-projection)
+        exp_sentence = None
+        if task == "grounding" and text_prompts is not None:
+            exp_sentence = text_prompts.embs[:, :, 0]  # [B, Qe, Dt]
 
         # pre-downsampled mask features per attention level
         Cm = mask_features.shape[-1]
@@ -225,7 +297,8 @@ class UniVSDecoder(nn.Module):
         ]
 
         def heads(out_tokens, mfs, need):
-            return self._prediction_heads(out_tokens, mask_features, mfs, cls_emb, b, t, need)
+            return self._prediction_heads(out_tokens, mask_features, mfs, task, cls_emb,
+                                          exp_sentence, b, t, need)
 
         logits, masks, embds_raw, attn_bias = heads(output, mf_small[0], False)
 

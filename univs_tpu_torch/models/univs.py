@@ -48,7 +48,7 @@ def _decoder(cfg: UniVSConfig) -> UniVSDecoder:
         hidden_dim=c.hidden_dim, num_queries=c.num_queries, num_layers=c.num_layers,
         num_heads=c.num_heads, ffn_dim=c.ffn_dim, pre_norm=c.pre_norm, mask_dim=c.mask_dim,
         text_emb_dim=c.clip_cls_emb_dim, self_attn_mask_type=c.self_attn_mask_type,
-        num_max_frames=c.num_max_frames,
+        num_max_frames=c.num_max_frames, l4p_fusion=c.l4p_fusion,
     )
 
 

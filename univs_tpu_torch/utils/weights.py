@@ -22,8 +22,10 @@ read in the other direction):
 and on any shape mismatch.
 
 Init (``init_params``): flax's defaults (LeCun-normal kernels, zero
-biases, unit norms, N(0, 1) embeddings) from a ``torch.Generator``, and
-the deformable-DETR init of the sampling offsets (zero kernel, the
+biases, unit norms, N(0, 1) embeddings) from a ``torch.Generator``; the
+CLIP text tower's raw parameters from the JAX package's initializers
+(token embedding N(0, 0.02), positional N(0, 0.01), projection
+N(0, width^-0.5)); and the deformable-DETR init of the sampling offsets (zero kernel, the
 direction-grid bias — ``pixel_decoder.py:48-64``) and of the attention
 weights (zero).  Without it the sampling kernels would sample at
 degenerate offsets.
@@ -146,6 +148,7 @@ def _lecun_normal_(w: torch.Tensor, g: torch.Generator) -> None:
 def init_params(model: nn.Module, seed: int) -> None:
     """Seeded init of every parameter of a port model (see module doc)."""
     from univs_tpu_torch.models.backbones.resnet import FrozenBatchNorm
+    from univs_tpu_torch.models.clip_text import ClipTextEncoder
     from univs_tpu_torch.models.decoder import UniVSDecoder
     from univs_tpu_torch.models.pixel_decoder import MSDeformAttnLayer, MSDeformAttnPixelDecoder
 
@@ -178,3 +181,7 @@ def init_params(model: nn.Module, seed: int) -> None:
                 p.fill_(math.log(1 / 0.07))
             for p in (mod.prompt_detection, mod.prompt_sot, mod.prompt_grounding):
                 p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+        elif isinstance(mod, ClipTextEncoder):
+            for p, std in ((mod.token_embedding, 0.02), (mod.positional_embedding, 0.01),
+                           (mod.text_projection, mod.width ** -0.5)):
+                p.copy_(torch.randn(p.shape, generator=g) * std)
