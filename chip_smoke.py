@@ -51,7 +51,10 @@ non-zero):
             * ``EntityDriver.run_vis`` for UniVS-R50 VIS at full width
               (default UniVSConfig, bf16, 640x960, T=5, stride 1, 60 entity
               slots, K=40) on a seeded uint8 video of 30 frames with seeded
-              random weights, A/B/C at 6 x (window encodes); the first 10
+              random weights, A/B/C at 6 x (window encodes), the encode
+              split into backbone and pixel decoder, the host time of the
+              counted run's parts (window encode, clip steps, JV walks,
+              result assembly, RLE); the first 10
               frames again with the class and consistency gates open; a
               profile of one more run (device time by kernel; the idle share
               over the wall time of the unprofiled runs, and over the
@@ -78,11 +81,35 @@ non-zero):
               (timed alone), padded to capacity 4; 3 timed runs after a
               warm-up with the peak device memory, and one run with the
               previous clip's visual prompts;
+            * ``MSDeformAttnPixelDecoderVL`` at full width on the R50
+              features of a 30-frame window and one expression's word
+              features [1, 77, 640] from the seeded RN50x4 tower (padding
+              invalid): ms per window, A/B/C 6 each, outputs finite and
+              of the expected shapes;
+            * the fast and image drivers with the VIS phase's model:
+              ``FastVISDriver.run`` (K=40, after a warm-up),
+              ``MDQEVISDriver.run`` (K=40, the first 15 frames: 15 clips
+              of stride 1, one window rollover), ``FastVPSDriver.run_vps``
+              (VIPSeg, K=124, 58 things), ``SemanticExtractionDriver.run``
+              + ``semantic_features_to_masks`` and ``ImageDriver.run`` on
+              one frame (COCO panoptic, K=133) + ``panoptic_inference``;
+              A/B/C at 6 x clips (6 for the image);
+            * ``EntityDriver.run_vis`` for UniVS Swin-L (window 12, as
+              Mask2Former's Swin-L configs) with the R50 headline's
+              settings and video: 3 timed runs after a warm-up, peak
+              memory, encode ms/frame split into backbone and pixel
+              decoder, the host time of the counted run's parts, one clip
+              step alone, a profile of one more run and of one window's
+              backbone; and for PVTv2-b2 (linear SRA) one run; A/B/C at
+              6 x window encodes, D/E/F 0;
   tiny    — each driver path against a reference on a small input: the
-            tiny config's ``run_vis`` / ``run_vss`` / ``run_vps`` /
-            ``VOSDriver.run`` / ``run_grounding`` in float32 on the card
-            (through the kernels) and on the CPU (plain laws); the
-            expressions tokenized once for both sides.
+            tiny config's ``run_vis`` (over R50, ``swin_tiny`` with every
+            stage map padded, and ``pvt_v2_b0``) / ``run_vss`` /
+            ``run_vps`` / ``VOSDriver.run`` / ``run_grounding`` /
+            ``FastVISDriver.run`` / ``ImageDriver.run`` and the VL pixel
+            decoder in float32 on the card (through the kernels) and on
+            the CPU (plain laws); the expressions tokenized once for both
+            sides.
 
 Prints one JSON line per check, the ``kernels`` summary line and the card
 line, and last ``{"ok": true, "device": {...}}``.  Exits with a non-zero
@@ -908,20 +935,17 @@ def check_results(results, V, H, W, capacity, K) -> bool:
     return bool(ok)
 
 
-def profile_run(driver, video, cls_emb, unprofiled_s):
-    """One extra ``run_vis`` under torch.profiler: device time by kernel
-    (top 12) and the device's idle share.  The profiler lengthens the
-    host's side of the run, so the idle share is taken over the wall time
-    of each unprofiled run of the same call (``unprofiled_s``); the share
-    over the profiled run's own wall time is printed beside it.  Returns
-    None where the profiler saw no device time."""
+def device_profile(fn):
+    """One call of ``fn`` under torch.profiler: (its wall ms, the device's
+    busy ms, the top 12 device kernels by ms), or None where the profiler
+    saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        driver.run_vis(video, cls_emb)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.events() if e.device_type.name == "CUDA"]
@@ -930,15 +954,37 @@ def profile_run(driver, video, cls_emb, unprofiled_s):
     by_name: dict = {}
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return wall_ms, sum(by_name.values()), [[n[:80], t] for n, t in top]
+
+
+def profile_run(driver, video, cls_emb, unprofiled_s, label: str = "run_vis"):
+    """One extra ``run_vis`` under torch.profiler: device time by kernel
+    (top 12) and the device's idle share.  The profiler lengthens the
+    host's side of the run, so the idle share is taken over the wall time
+    of each unprofiled run of the same call (``unprofiled_s``); the share
+    over the profiled run's own wall time is printed beside it.  The
+    record says "not measured" where the profiler saw no device time."""
+    got = device_profile(lambda: driver.run_vis(video, cls_emb))
+    if got is None:
+        return {"profile": label, "device_time": "not measured"}
+    wall_ms, busy_ms, top = got
     idle = [max(0.0, 1.0 - busy_ms / (s * 1e3)) for s in unprofiled_s]
-    return {"profile": "run_vis", "device_busy_ms": busy_ms,
+    return {"profile": label, "device_busy_ms": busy_ms,
             "unprofiled_wall_ms": [s * 1e3 for s in unprofiled_s],
             "device_idle_share": idle,
             "profiled_wall_ms": wall_ms,
             "device_idle_share_profiled_wall": max(0.0, 1.0 - busy_ms / wall_ms),
-            "top_kernels_ms": [[n[:80], t] for n, t in top]}
+            "top_kernels_ms": top}
+
+
+def profile_call(label: str, fn) -> dict:
+    """``device_profile`` of one call as a record: device busy ms and its
+    top kernels (no idle share: the call has no host phase of its own)."""
+    got = device_profile(fn)
+    if got is None:
+        return {"profile": label, "device_time": "not measured"}
+    return {"profile": label, "wall_ms": got[0], "device_busy_ms": got[1], "top_kernels_ms": got[2]}
 
 
 # the kernels of the pixel decoder's encoder layers, run 6 times per encode
@@ -968,6 +1014,56 @@ def counted(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, kernels.launch_counts()
+
+
+class HostTime:
+    """Calls and host seconds of ``owner.name`` (a module's function or a
+    class's method) while the ``with`` block runs: the host's wall time
+    inside each call, no synchronise added, so a call that waits for the
+    device counts the wait."""
+
+    def __init__(self, owner, name: str):
+        self._owner, self._name = owner, name
+
+    def __enter__(self):
+        self._fn = getattr(self._owner, self._name)
+        self.calls, self.s = 0, 0.0
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return self._fn(*args, **kwargs)
+            finally:
+                self.calls += 1
+                self.s += time.perf_counter() - t0
+
+        setattr(self._owner, self._name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self._owner, self._name, self._fn)
+
+    def record(self) -> dict:
+        return {"calls": self.calls, "host_s": self.s}
+
+
+def host_times(fn):
+    """(fn's result, the host time of a VIS run's parts): the window
+    encodes, the clip steps (the JV walks inside them), the host assembly
+    of the results (the RLE encodes inside it)."""
+    import contextlib
+
+    from univs_tpu_torch.inference import driver
+    from univs_tpu_torch.losses import hungarian
+    from univs_tpu_torch.utils import rle
+
+    spots = {"encode": (driver._StreamingDriver, "encode_window"),
+             "clip_steps": (driver, "entity_clip_step"), "jv": (hungarian, "hungarian_numpy"),
+             "assembly": (driver, "assemble_vis_results"), "rle": (rle, "encode")}
+    with contextlib.ExitStack() as stack:
+        timers = {k: stack.enter_context(HostTime(*v)) for k, v in spots.items()}
+        out = fn()
+    return out, {k: t.record() for k, t in timers.items()}
 
 
 def tiny_setup():
@@ -1000,18 +1096,18 @@ def tiny_drivers(cfg, K, seed):
             EntityDriver(cfg, None, num_classes=K, capacity=6, device="cpu", seed=seed))
 
 
-def reference_check() -> bool:
+def reference_check(cfg=None, label: str = "run_vis_tiny") -> bool:
     """The whole path against a reference on a small input: the tiny
-    config's ``run_vis`` in float32 on the card (through the kernels,
-    head width D=8) and on the CPU (plain laws), from the same seeded
-    weights and video.  The same entities must come out, each frame's
+    config's ``run_vis`` (or ``cfg``'s, with its backbone) in float32 on
+    the card (through the kernels, head width D=8) and on the CPU (plain
+    laws), from the same seeded weights and video.  The same entities must come out, each frame's
     mask with IoU >= 0.99 and class scores within 1e-3: float32 results
     that differ only in summation order (cuDNN vs CPU convolutions, the
     kernels vs the plain laws) may flip a pixel whose logit is ~0."""
     from univs_tpu_torch.utils import rle
 
-    cfg, video, cls_emb = tiny_setup()
-    cuda_d, cpu_d = tiny_drivers(cfg, cls_emb.shape[0], seed=3)
+    tiny_cfg, video, cls_emb = tiny_setup()
+    cuda_d, cpu_d = tiny_drivers(cfg or tiny_cfg, cls_emb.shape[0], seed=3)
     got, launches = counted(lambda: cuda_d.run_vis(video, cls_emb))
     launched = all(launches[k] > 0 for k in ENCODER_KERNELS)
     want = cpu_d.run_vis(video, cls_emb)
@@ -1026,7 +1122,7 @@ def reference_check() -> bool:
             max_score_err = max(max_score_err, float(np.abs(np.asarray(g["score"]) -
                                                             np.asarray(w["score"])).max()))
         ok = min_iou >= 0.99 and max_score_err <= 1e-3
-    emit({"check": "run_vis_tiny_cuda_vs_cpu", "entities_cuda": len(got),
+    emit({"check": f"{label}_cuda_vs_cpu", "entities_cuda": len(got),
           "entities_cpu": len(want), "kernels_launched": launched, "min_mask_iou": min_iou,
           "max_score_abs_err": max_score_err, "pass": bool(ok)})
     return bool(ok)
@@ -1136,10 +1232,7 @@ def run_main_path():
     import torch
 
     from univs_tpu_torch.config import UniVSConfig
-    from univs_tpu_torch.inference import memory_pool as mp
     from univs_tpu_torch.inference.driver import EntityDriver
-    from univs_tpu_torch.inference.entity import entity_clip_step
-    from univs_tpu_torch.tools import time_ms
 
     cfg = UniVSConfig(dtype="bfloat16")
     (H, W), V, K = FULL_HW, MAIN_PATH_FRAMES, 40
@@ -1153,7 +1246,7 @@ def run_main_path():
 
     warm_s = timed_runs(lambda: driver.run_vis(video, cls_emb), 1)[0]  # cuDNN plans, allocator
     t0 = time.perf_counter()
-    results, launches = counted(lambda: driver.run_vis(video, cls_emb))
+    (results, host), launches = counted(lambda: host_times(lambda: driver.run_vis(video, cls_emb)))
     run_s = [time.perf_counter() - t0]
     expected = expected_launches(n_enc, cfg.pixel_decoder.num_layers)
     counts_ok = check_launches("run_vis", launches, expected)
@@ -1181,41 +1274,61 @@ def run_main_path():
                   "host_assembly_s": t2 - t1,
                   "rle_ms_per_mask": (t2 - t1) * 1e3 / max(1, Vo * len(open_results))}
 
-    # stage times outside the counted run
-    frames_d = torch.as_tensor(video).cuda()
-    window = frames_d[:driver.window]
-    encode_ms = time_ms(lambda: driver.encode_window(window), "cuda", iters=3, warmup=1)
-    mf, ms = driver.encode_window(window)
-    T = driver.T
-    feats = (mf[:T], tuple(m[:T] for m in ms))
-    pool = mp.create_entity_memory(E, K, cfg.decoder.hidden_dim, (H // 4, W // 4),
-                                   window=driver.out_window + T,
-                                   num_prompt_points=driver.cc.num_dense_points,
-                                   embd_history=8, prompt_history=T + driver.stride, device="cuda")
-    cls_d = cls_emb.cuda()
-    with torch.no_grad():
-        entity_clip_step(driver._modules, feats, pool, list(range(T)), 0, True, cls_d, driver.cc)
-        clip_ms = time_ms(lambda: entity_clip_step(driver._modules, feats, pool,
-                                                   list(range(1, T + 1)), 1, False, cls_d,
-                                                   driver.cc), "cuda", iters=10)
+    stages = vis_stage_times(driver, video, cls_emb)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     emit({"path": "EntityDriver.run_vis", "config": "UniVS-R50 VIS, bf16",
-          "frames": V, "height": H, "width": W, "T": T, "stride": driver.stride,
+          "frames": V, "height": H, "width": W, "T": driver.T, "stride": driver.stride,
           "window": driver.window, "capacity": E, "classes": K,
           "window_encodes": n_enc, "clips": n_clips, "warmup_s": warm_s, "run_s": run_s,
-          "fps": V / run_s[0], "fps_runs": [V / t for t in run_s],
-          "encode_ms_per_frame": encode_ms / driver.window,
-          "clip_step_ms": clip_ms, "entities": len(results),
+          "fps": V / run_s[0], "fps_runs": [V / t for t in run_s], **stages,
+          "entities": len(results), "host": host,
           "gates_open": gates_open,
           "peak_mem_gb": peak_gb,
           "launches": launches, "launches_expected": expected,
           "launches_ok": counts_ok, "outputs_ok": out_ok})
-    prof = profile_run(driver, video, cls_emb, run_s)
-    emit(prof if prof is not None else {"profile": "run_vis", "device_time": "not measured"})
-    del pool, feats, mf, ms, frames_d, window
+    emit(profile_run(driver, video, cls_emb, run_s))
     torch.cuda.empty_cache()
     return counts_ok and out_ok, launches, driver
+
+
+def vis_stage_times(driver, video, cls_emb) -> dict:
+    """Stage times outside the counted runs (CUDA events): one window
+    encode per frame, split into the backbone (normalisation included)
+    and the pixel decoder, and one clip step alone (the video's second
+    clip, on an empty pool)."""
+    import torch
+
+    from univs_tpu_torch.inference import memory_pool as mp
+    from univs_tpu_torch.inference.entity import entity_clip_step
+    from univs_tpu_torch.tools import time_ms
+
+    model = driver.model
+    (H, W), T, n = video.shape[1:3], driver.T, driver.window
+    window = torch.as_tensor(video[:n]).cuda()
+    with torch.no_grad():
+        encode_ms = time_ms(lambda: driver.encode_window(window), "cuda", iters=3, warmup=1)
+        backbone_ms = time_ms(lambda: model.backbone(model.normalize(window)), "cuda", iters=3,
+                              warmup=0)
+        feats = model.backbone(model.normalize(window))
+        pd_ms = time_ms(lambda: model.pixel_decoder(feats), "cuda", iters=3, warmup=0)
+        del feats
+        mf, ms = driver.encode_window(window)
+        clip_feats = (mf[:T], tuple(m[:T] for m in ms))
+        E, K = driver.capacity, driver.num_classes
+        pool = mp.create_entity_memory(E, K, driver.cfg.decoder.hidden_dim, (H // 4, W // 4),
+                                       window=driver.out_window + T,
+                                       num_prompt_points=driver.cc.num_dense_points,
+                                       embd_history=8, prompt_history=T + driver.stride,
+                                       device=driver.device)
+        cls_d = cls_emb.to(driver.device)
+        entity_clip_step(driver._modules, clip_feats, pool, list(range(T)), 0, True, cls_d,
+                         driver.cc)
+        clip_ms = time_ms(lambda: entity_clip_step(driver._modules, clip_feats, pool,
+                                                   list(range(1, T + 1)), 1, False, cls_d,
+                                                   driver.cc), "cuda", iters=10)
+    return {"encode_ms_per_frame": encode_ms / n, "backbone_ms_per_frame": backbone_ms / n,
+            "pixel_decoder_ms_per_frame": pd_ms / n, "clip_step_ms": clip_ms}
 
 
 def full_width_video(seed: int):
@@ -1774,6 +1887,405 @@ def reference_check_grounding() -> bool:
     return bool(ok)
 
 
+# ---------------------------------------------------------------------------
+# the other backbones, the VL pixel decoder, the fast and image drivers
+# ---------------------------------------------------------------------------
+
+# Mask2Former's Swin-L configs (maskformer2_swin_large_IN21k_384_bs16_100ep.yaml:
+# WINDOW_SIZE 12, PRETRAIN_IMG_SIZE 384), on which UniVS's Swin-L configs build
+SWIN_L = dict(name="swin_large", swin_window_size=12)
+# COCO panoptic: 133 categories, the 80 things first in contiguous order
+COCO_PANOPTIC_CLASSES, COCO_THINGS = 133, 80
+# the MDQE tracker keeps every frame's 1/4-resolution logits of every
+# instance on the host: one window rollover fits in this many frames
+MDQE_FRAMES = 15
+
+
+def backbone_vis_path(backbone: dict, label: str, timed: int, profile: bool = False):
+    """``EntityDriver.run_vis`` at full width (default UniVSConfig, bf16,
+    640x960, T=5, stride 1, 60 slots, K=40, the 30-frame seeded video of
+    the R50 headline) over another backbone with seeded random weights: a
+    warm-up, then ``timed`` runs (the first counted, with its peak
+    device memory and the host time of its parts), the encode split into backbone and pixel decoder and
+    one clip step alone; with ``profile``, one more run and one window's
+    backbone under the profiler.  Returns (ok, launches of the counted
+    run)."""
+    import torch
+
+    from univs_tpu_torch.config import BackboneConfig, UniVSConfig
+    from univs_tpu_torch.inference.driver import EntityDriver
+
+    cfg = UniVSConfig(dtype="bfloat16", backbone=BackboneConfig(**backbone))
+    (H, W), V, K = FULL_HW, MAIN_PATH_FRAMES, 40
+    E = cfg.inference.max_num_instances
+    rng = np.random.RandomState(0)
+    video = (rng.rand(V, H, W, 3) * 255).astype(np.uint8)
+    cls_emb = torch.as_tensor(rng.randn(K, cfg.decoder.clip_cls_emb_dim).astype(np.float32))
+    t0 = time.perf_counter()
+    driver = EntityDriver(cfg, None, num_classes=K, capacity=E, seed=0)
+    build_s = time.perf_counter() - t0
+    n_enc = driver.num_window_encodes(V)
+    warm_s = timed_runs(lambda: driver.run_vis(video, cls_emb), 1)[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (results, host), launches = counted(lambda: host_times(lambda: driver.run_vis(video, cls_emb)))
+    run_s = [time.perf_counter() - t0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = expected_launches(n_enc, cfg.pixel_decoder.num_layers)
+    counts_ok = check_launches(f"run_vis {label}", launches, expected)
+    out_ok = check_results(results, V, H, W, E, K)
+    if timed > 1:
+        run_s += timed_runs(lambda: driver.run_vis(video, cls_emb), timed - 1)
+    stages = vis_stage_times(driver, video, cls_emb)
+    n_params = sum(p.numel() for p in driver.model.backbone.parameters())
+    emit({"path": f"EntityDriver.run_vis {label}", "config": f"UniVS {label} VIS, bf16",
+          "backbone": backbone, "backbone_params": n_params,
+          "backbone_channels": driver.model.backbone.out_channels,
+          "frames": V, "height": H, "width": W, "T": driver.T, "stride": driver.stride,
+          "capacity": E, "classes": K, "window_encodes": n_enc, "build_s": build_s,
+          "warmup_s": warm_s, "run_s": run_s, "fps_runs": [V / t for t in run_s], **stages,
+          "backbone_share_of_encode": stages["backbone_ms_per_frame"]
+          / (stages["backbone_ms_per_frame"] + stages["pixel_decoder_ms_per_frame"]),
+          "entities": len(results), "host": host, "peak_mem_gb": peak_gb,
+          "launches": launches, "launches_expected": expected, "launches_ok": counts_ok,
+          "outputs_ok": out_ok})
+    if profile:
+        model = driver.model
+        window = torch.as_tensor(video[:driver.window]).cuda()
+        emit(profile_run(driver, video, cls_emb, run_s, f"run_vis {label}"))
+        with torch.no_grad():
+            emit(profile_call(f"backbone {label}, one window",
+                              lambda: model.backbone(model.normalize(window))))
+        del model, window
+    del driver
+    torch.cuda.empty_cache()
+    return counts_ok and out_ok, launches
+
+
+def run_swin_path():
+    return backbone_vis_path(SWIN_L, "Swin-L (window 12)", timed=3, profile=True)
+
+
+def run_pvt_path():
+    return backbone_vis_path(dict(name="pvt_v2_b2"), "PVTv2-b2 (linear SRA)", timed=1)
+
+
+def language_features(expression: str, device="cuda"):
+    """[1, 77, 640] word features of one expression from the seeded RN50x4
+    text tower (template '{}.'), and its [1, 77] validity (token id != 0:
+    the padding after the end token is invalid)."""
+    import torch
+
+    from univs_tpu_torch.models.clip_text import ClipTextEncoder, TextPromptEncoder
+    from univs_tpu_torch.models.tokenizer import pre_tokenize
+
+    tpe = TextPromptEncoder(encoder=ClipTextEncoder(embed_dim=640), seed=5, device=device)
+    tokens = pre_tokenize([expression], tpe.tokenizer, text_type="expression")[:, :1]
+    word, _ = tpe.encode_tokens(tokens)
+    return word[:, 0], torch.as_tensor(tokens[:, 0] != 0, device=device)
+
+
+def vl_decoder(channels, geo: dict, lang_dim: int, seed: int, dtype: str, device):
+    """A seeded ``MSDeformAttnPixelDecoderVL`` placed as the model builders
+    place a model (``dtype`` "bfloat16" keeps its LayerNorms and gammas
+    float32)."""
+    from univs_tpu_torch.config import UniVSConfig
+    from univs_tpu_torch.models.pixel_decoder_vl import MSDeformAttnPixelDecoderVL
+    from univs_tpu_torch.models.univs import _place
+    from univs_tpu_torch.utils.weights import init_params
+
+    pd = MSDeformAttnPixelDecoderVL(channels, lang_dim=lang_dim, **geo)
+    init_params(pd, seed)
+    return _place(pd, UniVSConfig(dtype=dtype), device)
+
+
+def run_vl_decoder_path(model):
+    """``MSDeformAttnPixelDecoderVL`` at full width (C=256, 8 heads, 4
+    points, FFN 1024, 6 layers, VLFuse embed 1024, language width 640),
+    bf16, seeded: the R50 features of a 30-frame window from the VIS
+    phase's model, and the word features [1, 77, 640] of one expression
+    from the seeded RN50x4 text tower with ``lang_valid`` False on the
+    padding.  One counted call (A, B, C 6 each), the ms per window (CUDA
+    events), outputs finite and of the expected shapes.  No driver builds
+    this module, so it is driven as a module.  Returns (ok, launches)."""
+    import torch
+
+    from univs_tpu_torch.tools import time_ms
+
+    cfg = model.cfg
+    (H, W), V = FULL_HW, MAIN_PATH_FRAMES
+    c = cfg.pixel_decoder
+    geo = dict(hidden_dim=c.hidden_dim, mask_dim=c.mask_dim, num_layers=c.num_layers,
+               num_heads=c.num_heads, num_points=c.num_points, ffn_dim=c.ffn_dim)
+    lang, lang_valid = language_features(EXPRESSIONS[0])
+    pd = vl_decoder(model.backbone.out_channels, geo, 640, 7, "bfloat16", "cuda")
+    video, _ = full_width_video(6)
+    with torch.no_grad():
+        feats = model.backbone(model.normalize(torch.as_tensor(video).cuda()))
+        outs, launches = counted(lambda: pd(feats, lang, lang_valid))
+        ms_window = time_ms(lambda: pd(feats, lang, lang_valid), "cuda", iters=3, warmup=1)
+        plain_ms = time_ms(lambda: model.pixel_decoder(feats), "cuda", iters=3, warmup=1)
+        prof = profile_call("MSDeformAttnPixelDecoderVL, one window",
+                            lambda: pd(feats, lang, lang_valid))
+    mf, mf_bfe, enc, ms, lang_out = outs
+    shapes_ok = (tuple(mf.shape) == (V, H // 4, W // 4, c.mask_dim)
+                 and tuple(mf_bfe.shape) == (V, H // 4, W // 4, c.hidden_dim)
+                 and tuple(enc.shape) == (V, H // 32, W // 32, c.hidden_dim)
+                 and [tuple(m.shape[1:3]) for m in ms] == [(H // 32, W // 32), (H // 16, W // 16),
+                                                           (H // 8, W // 8)]
+                 and tuple(lang_out.shape) == (V, *lang.shape[1:]))
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (mf, mf_bfe, enc, lang_out, *ms))
+    counts_ok = check_launches("MSDeformAttnPixelDecoderVL", launches,
+                               expected_launches(1, c.num_layers))
+    ok = counts_ok and shapes_ok and finite
+    emit({"path": "MSDeformAttnPixelDecoderVL", "config": "UniVS-R50 features, RN50x4 words, bf16",
+          "frames": V, "height": H, "width": W, "lang_tokens_valid": int(lang_valid.sum()),
+          "ms_per_window": ms_window, "pixel_decoder_ms_per_window": plain_ms,
+          "launches": launches, "shapes_ok": shapes_ok, "finite": finite, "ok": ok})
+    emit(prof)
+    del pd, feats, outs
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def run_fast_paths(model):
+    """Item 13's drivers at full width on the VIS phase's R50 model (bf16,
+    640x960, T=5): a warm-up of ``FastVISDriver.run``, then one run each
+    of ``FastVISDriver.run`` (K=40), ``MDQEVISDriver.run`` (K=40, the
+    first MDQE_FRAMES frames: every clip of stride 1, one window
+    rollover), ``FastVPSDriver.run_vps`` (VIPSeg, K=124, its 58 things),
+    ``SemanticExtractionDriver.run`` + ``semantic_features_to_masks`` and
+    ``ImageDriver.run`` on one frame (COCO panoptic, K=133) +
+    ``panoptic_inference``.  Each re-encodes per clip: A, B and C at 6 x
+    clips (6 for the image).  Returns (ok, {path: launches})."""
+    import math
+
+    import torch
+
+    from univs_tpu_torch.inference import fast_vis, image
+
+    cfg = model.cfg
+    (H, W), V = FULL_HW, MAIN_PATH_FRAMES
+    layers = cfg.pixel_decoder.num_layers
+    video, bank124 = full_width_video(8)
+    rng = np.random.RandomState(8)
+    bank40 = bank124[:40]
+    bank133 = torch.as_tensor(rng.randn(COCO_PANOPTIC_CLASSES, cfg.decoder.clip_cls_emb_dim)
+                              .astype(np.float32))
+    ok, by_path = True, {}
+
+    def one(name, clips, fn, check):
+        nonlocal ok
+        t0 = time.perf_counter()
+        out, launches = counted(fn)
+        s = time.perf_counter() - t0
+        rec = {"path": name, "frames": 1 if name.startswith("Image") else V, "run_s": s,
+               "clips": clips, "launches": launches}
+        rec["launches_ok"] = check_launches(name, launches, expected_launches(clips, layers))
+        rec.update(check(out))
+        ok &= rec["launches_ok"] and rec["outputs_ok"]
+        by_path[name] = launches
+        return rec, out
+
+    fast = fast_vis.FastVISDriver(cfg, model)
+    warm_s = timed_runs(lambda: fast.run(video, bank40), 1)[0]
+
+    def check_fast(res):
+        good = len(res) == min(10, cfg.decoder.num_queries) and all(r["mask_logits"].shape == (V, H // 4, W // 4)
+                                      and np.isfinite(r["mask_logits"]).all() for r in res)
+        return {"instances": len(res), "categories": [r["category_id"] for r in res],
+                "outputs_ok": bool(good)}
+
+    rec, _ = one("FastVISDriver.run", math.ceil(V / fast.T), lambda: fast.run(video, bank40),
+                 check_fast)
+    rec["warmup_s"] = warm_s
+    rec["fps"] = V / rec["run_s"]
+    emit(rec)
+
+    mdqe = fast_vis.MDQEVISDriver(cfg, model)
+    Vm = MDQE_FRAMES
+
+    def check_mdqe(res):
+        good = len(res) >= 1 and all(
+            sorted(r["masks"]) == list(range(Vm)) and np.isfinite(r["score"]).all()
+            and all(m.shape == (H // 4, W // 4) for m in r["masks"].values()) for r in res)
+        return {"tracks": len(res), "outputs_ok": bool(good)}
+
+    rec, _ = one("MDQEVISDriver.run", math.ceil(Vm / cfg.inference.clip_stride),
+                 lambda: mdqe.run(video[:Vm], bank40), check_mdqe)
+    rec["frames"] = Vm
+    rec["fps"] = Vm / rec["run_s"]
+    emit(rec)
+
+    vps = fast_vis.FastVPSDriver(cfg, model)
+
+    def check_vps(out):
+        pan, info = out
+        ids = {r["id"] for r in info}
+        good = (pan.shape == (V, H // 4, W // 4) and set(np.unique(pan).tolist()) <= ids | {0}
+                and all(1 <= r["category_id"] <= VIPSEG_CLASSES for r in info))
+        return {"segments": len(info), "things": sum(r["isthing"] for r in info),
+                "outputs_ok": bool(good)}
+
+    rec, _ = one("FastVPSDriver.run_vps", math.ceil(V / vps.T),
+                 lambda: vps.run_vps(video, bank124, VIPSEG_THING_IDS), check_vps)
+    rec["fps"] = V / rec["run_s"]
+    emit(rec)
+
+    ext = fast_vis.SemanticExtractionDriver(cfg, model)
+    Q, C = cfg.decoder.num_queries, cfg.decoder.hidden_dim
+
+    def check_ext(out):
+        toks, mfs = out
+        good = (toks.shape == (V, C, Q) and mfs.shape == (V, H // 32, W // 32, cfg.pixel_decoder.mask_dim)
+                and np.isfinite(toks).all() and np.isfinite(mfs).all())
+        return {"tokens": list(toks.shape), "mask_features": list(mfs.shape),
+                "outputs_ok": bool(good)}
+
+    rec, (toks, mfs) = one("SemanticExtractionDriver.run", math.ceil(V / ext.T),
+                           lambda: ext.run(video, bank40), check_ext)
+    rec["fps"] = V / rec["run_s"]
+    t0 = time.perf_counter()
+    full = fast_vis.semantic_features_to_masks(cfg, model, toks, mfs, bank40,
+                                               only_high_conf_masks=False)
+    kept = fast_vis.semantic_features_to_masks(cfg, model, toks, mfs, bank40)
+    rec["to_masks_s"] = time.perf_counter() - t0
+    to_ok = (full[0].shape == (Q, V, 40) and full[1].shape == (Q, V, H // 32, W // 32)
+             and np.isfinite(full[0]).all() and np.isfinite(full[1]).all()
+             and set(kept[2].tolist()) <= set(range(Q)))
+    rec["to_masks"] = {"cls_logits": list(full[0].shape), "mask_logits": list(full[1].shape),
+                       "kept_high_conf": len(kept[2]), "outputs_ok": bool(to_ok)}
+    ok &= bool(to_ok)
+    emit(rec)
+
+    img = image.ImageDriver(cfg, model, num_classes=COCO_PANOPTIC_CLASSES)
+    frame = video[:1].astype(np.float32)
+    things = set(range(COCO_THINGS))
+    img.run(frame, bank133, (H, W), (H, W))  # warm-up: the prompt-query decoder shapes
+
+    def check_img(out):
+        mask_cls, mask_pred = out
+        Qi = cfg.decoder.num_queries + COCO_PANOPTIC_CLASSES
+        good = (mask_cls.shape == (Qi, COCO_PANOPTIC_CLASSES) and mask_pred.shape == (Qi, H, W)
+                and np.isfinite(mask_cls).all() and np.isfinite(mask_pred).all())
+        return {"queries": Qi, "outputs_ok": bool(good)}
+
+    rec, (mask_cls, mask_pred) = one("ImageDriver.run", 1,
+                                     lambda: img.run(frame, bank133, (H, W), (H, W)), check_img)
+    rec["ms"] = rec["run_s"] * 1e3
+    t0 = time.perf_counter()
+    pan, info = image.panoptic_inference(mask_cls, mask_pred, cfg.decoder.num_queries, things)
+    rec["panoptic_inference_s"] = time.perf_counter() - t0
+    pan_ok = pan.shape == (H, W) and set(np.unique(pan).tolist()) <= {r["id"] for r in info} | {0}
+    rec["panoptic"] = {"segments": len(info), "things": sum(r["isthing"] for r in info),
+                       "outputs_ok": bool(pan_ok)}
+    ok &= bool(pan_ok)
+    emit(rec)
+    del fast, mdqe, vps, ext, img
+    torch.cuda.empty_cache()
+    return bool(ok), by_path
+
+
+def reference_check_backbone(name: str) -> bool:
+    """``run_vis`` on the tiny config over ``name`` (swin_tiny, window 7:
+    every stage map of a 64x96 frame needs padding; pvt_v2_b0 with the
+    linear SRA) in float32, card vs CPU, as ``reference_check``."""
+    from univs_tpu_torch.config import BackboneConfig
+
+    cfg = tiny_setup()[0]
+    return reference_check(cfg.replace(backbone=BackboneConfig(name=name)), f"run_vis_tiny_{name}")
+
+
+def reference_check_vl_decoder() -> bool:
+    """``MSDeformAttnPixelDecoderVL`` at the tiny geometry (C=32, 4 heads,
+    2 points, FFN 64, 2 layers, language width 16) in float32 with the
+    same seeded weights on the card (through the kernels) and the CPU
+    (plain laws), on seeded R50-shaped features of 2 frames and 7
+    language tokens, the last 2 invalid: all five outputs within 1e-3 of
+    each output's largest magnitude."""
+    import torch
+
+    geo = dict(hidden_dim=32, mask_dim=32, num_layers=2, num_heads=4, num_points=2, ffn_dim=64)
+    ch = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
+    rng = np.random.RandomState(12)
+    feats = {k: torch.as_tensor(rng.randn(2, 64 // s, 96 // s, c).astype(np.float32))
+             for (k, c), s in zip(ch.items(), (4, 8, 16, 32))}
+    lang = torch.as_tensor(rng.randn(1, 7, 16).astype(np.float32))
+    valid = torch.tensor([[True] * 5 + [False] * 2])
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        pd = vl_decoder(ch, geo, 16, 13, "float32", dev)
+        args = ({k: v.to(dev) for k, v in feats.items()}, lang.to(dev), valid.to(dev))
+        with torch.no_grad():
+            if dev == "cuda":
+                outs[dev], launches = counted(lambda: pd(*args))
+            else:
+                outs[dev] = pd(*args)
+    flat = {d: [o[0], o[1], o[2], *o[3], o[4]] for d, o in outs.items()}
+    rel = max(float((g.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+              for g, w in zip(flat["cuda"], flat["cpu"]))
+    launched = all(launches[k] > 0 for k in ENCODER_KERNELS)
+    ok = launched and rel <= 1e-3
+    emit({"check": "vl_pixel_decoder_tiny_cuda_vs_cpu", "outputs": len(flat["cpu"]),
+          "kernels_launched": launched, "max_rel_err": rel, "pass": bool(ok)})
+    return bool(ok)
+
+
+def reference_check_fast_vis() -> bool:
+    """``FastVISDriver.run`` on the tiny config in float32, card vs CPU,
+    same seeded weights and video: the same instances in the same order
+    and categories, each frame's mask (logit > 0) with IoU >= 0.99."""
+    from univs_tpu_torch.inference.fast_vis import FastVISDriver
+
+    cfg, video, cls_emb = tiny_setup()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        d = FastVISDriver(cfg, None, device=dev, seed=3)
+        if dev == "cuda":
+            outs[dev], launches = counted(lambda: d.run(video, cls_emb, topk=4))
+        else:
+            outs[dev] = d.run(video, cls_emb, topk=4)
+    got, want = outs["cuda"], outs["cpu"]
+    launched = all(launches[k] > 0 for k in ENCODER_KERNELS)
+    cats = [r["category_id"] for r in want]
+    iou = min(min_iou(g["mask_logits"] > 0, w["mask_logits"] > 0) for g, w in zip(got, want))
+    ok = launched and cats == [r["category_id"] for r in got] and len(want) == 4 and iou >= 0.99
+    emit({"check": "fast_vis_tiny_cuda_vs_cpu", "categories_cpu": cats,
+          "categories_cuda": [r["category_id"] for r in got], "kernels_launched": launched,
+          "min_mask_iou": iou, "pass": bool(ok)})
+    return bool(ok)
+
+
+def reference_check_image() -> bool:
+    """``ImageDriver.run`` on the tiny config in float32, card vs CPU, one
+    seeded 64x96 frame, things {0, 2} of 5 classes (weights of seed 5:
+    two segments): class scores x quality within 1e-3, the same panoptic
+    segments, the maps agreeing on >= 99 % of their pixels."""
+    from univs_tpu_torch.inference.image import ImageDriver, panoptic_inference
+
+    cfg, video, cls_emb = tiny_setup()
+    frame = video[:1].astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        d = ImageDriver(cfg, None, num_classes=cls_emb.shape[0], device=dev, seed=5)
+        if dev == "cuda":
+            outs[dev], launches = counted(lambda: d.run(frame, cls_emb, (64, 96), (64, 96)))
+        else:
+            outs[dev] = d.run(frame, cls_emb, (64, 96), (64, 96))
+    nq = cfg.decoder.num_queries
+    (g_cls, g_pred), (w_cls, w_pred) = outs["cuda"], outs["cpu"]
+    g_pan, g_info = panoptic_inference(g_cls, g_pred, nq, {0, 2})
+    w_pan, w_info = panoptic_inference(w_cls, w_pred, nq, {0, 2})
+    launched = all(launches[k] > 0 for k in ENCODER_KERNELS)
+    cls_err = float(np.abs(g_cls - w_cls).max())
+    agree = float((g_pan == w_pan).mean())
+    ok = launched and cls_err <= 1e-3 and g_info == w_info and len(w_info) >= 1 and agree >= 0.99
+    emit({"check": "image_tiny_cuda_vs_cpu", "segments_cuda": g_info, "segments_cpu": w_info,
+          "kernels_launched": launched, "max_score_abs_err": cls_err,
+          "panoptic_agreement": agree, "pass": bool(ok)})
+    return bool(ok)
+
+
 def main() -> int:
     import torch
 
@@ -1811,16 +2323,28 @@ def main() -> int:
     path_ok, by_path["run_vis"], vis_driver = run_main_path()
     ok &= path_ok
     for name, run in (("run_vss", run_vss_path), ("run_vps", run_vps_path),
-                      ("run_vos", run_vos_path), ("run_grounding", run_grounding_path)):
+                      ("run_vos", run_vos_path), ("run_grounding", run_grounding_path),
+                      ("vl_pixel_decoder", run_vl_decoder_path)):
         path_ok, by_path[name] = run(vis_driver.model)
         ok &= path_ok
+    path_ok, fast_paths = run_fast_paths(vis_driver.model)
+    ok &= path_ok
+    by_path.update(fast_paths)
     del vis_driver
     torch.cuda.empty_cache()
+    for name, run in (("run_vis swin_large", run_swin_path), ("run_vis pvt_v2_b2", run_pvt_path)):
+        path_ok, by_path[name] = run()
+        ok &= path_ok
     ok &= reference_check()
     ok &= reference_check_vss()
     ok &= reference_check_vps()
     ok &= reference_check_vos()
     ok &= reference_check_grounding()
+    for name in ("swin_tiny", "pvt_v2_b0"):
+        ok &= reference_check_backbone(name)
+    ok &= reference_check_vl_decoder()
+    ok &= reference_check_fast_vis()
+    ok &= reference_check_image()
 
     rows = []
     for name in kernels.KERNELS:

@@ -17,6 +17,9 @@ import torch
 import univs_tpu_torch
 from univs_tpu_torch.config import tiny_test_config
 from univs_tpu_torch.inference.driver import EntityDriver
+from univs_tpu_torch.inference.fast_vis import (FastVISDriver, FastVPSDriver, MDQEVISDriver,
+                                                SemanticExtractionDriver)
+from univs_tpu_torch.inference.image import ImageDriver
 from univs_tpu_torch.models import univs as univs_models
 from univs_tpu_torch.ops import kernels
 
@@ -74,6 +77,23 @@ def test_entry_points_refuse_cpu_without_request(monkeypatch):
         univs_models.build_pixel_decoder(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         univs_models.build_decoder(cfg, device="cuda")
+
+
+@pytest.mark.parametrize("make", [
+    lambda cfg, **kw: FastVISDriver(cfg, **kw),
+    lambda cfg, **kw: MDQEVISDriver(cfg, **kw),
+    lambda cfg, **kw: FastVPSDriver(cfg, **kw),
+    lambda cfg, **kw: SemanticExtractionDriver(cfg, **kw),
+    lambda cfg, **kw: ImageDriver(cfg, num_classes=2, **kw),
+], ids=["fast_vis", "mdqe", "fast_vps", "semantic_extraction", "image"])
+def test_fast_and_image_drivers_refuse_cpu_without_request(monkeypatch, make):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_test_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(cfg)
+    driver = make(cfg, device="cpu")
+    assert driver.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in driver.model.parameters())
 
 
 def test_cpu_tensors_take_the_plain_laws(monkeypatch):

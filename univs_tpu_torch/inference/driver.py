@@ -80,7 +80,7 @@ class _StreamingDriver:
     # real frame passes it (min(i + T, V)); its VOS loop when i + T does
     tail_clamped_encode = True
 
-    def __init__(self, cfg: UniVSConfig, params, device, seed: int):
+    def __init__(self, cfg: UniVSConfig, params=None, device=None, seed: int = 0):
         self.device = resolve_device(device)
         self.cfg = cfg
         if isinstance(params, UniVSModel):

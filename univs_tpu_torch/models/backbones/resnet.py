@@ -9,7 +9,10 @@ package; inside, convolutions run NCHW in channels-last memory format
 flax tree (``stem_conv``, ``res2_block0.conv1`` ...) so the weight
 bridge maps them one to one.
 
-Feature strides: res2=4, res3=8, res4=16, res5=32.
+Feature strides: res2=4, res3=8, res4=16, res5=32.  ``build_backbone``
+here is the factory of every backbone (ResNet, Swin, PVTv2), as in the
+JAX package, and ``pad_same`` the flax "SAME" padding the other two
+need for their strided convs.
 """
 
 from __future__ import annotations
@@ -38,6 +41,17 @@ class FrozenBatchNorm(nn.Module):
         mul = self.weight.to(f32) * (self.running_var.to(f32) + self.eps) ** -0.5
         add = self.bias.to(f32) - self.running_mean.to(f32) * mul
         return x * mul.to(x.dtype)[None, :, None, None] + add.to(x.dtype)[None, :, None, None]
+
+
+def pad_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """Zero-pad an NCHW map as flax's default ``padding="SAME"`` does for a
+    k x k conv of this stride: ceil(n / stride) outputs, the padding split
+    low = total // 2, high = the rest."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
 
 
 def _conv(cin, cout, k, stride=1, dilation=1):
@@ -76,6 +90,7 @@ class ResNet(nn.Module):
     def __init__(self, depth: int = 50, out_features: Sequence[str] = ("res2", "res3", "res4", "res5")):
         super().__init__()
         self.out_features = tuple(out_features)
+        self.out_channels = {f"res{s + 2}": 256 * 2 ** s for s in range(4)}
         self.stem_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.stem_bn = FrozenBatchNorm(64)
         self.block_names = []
@@ -106,7 +121,19 @@ class ResNet(nn.Module):
 
 
 def build_backbone(cfg) -> nn.Module:
-    """Factory from a BackboneConfig (ResNet only in this port slice)."""
-    if not cfg.name.startswith("resnet"):
-        raise NotImplementedError(f"backbone {cfg.name!r} is not ported yet")
-    return ResNet(depth=cfg.resnet_depth, out_features=cfg.out_features)
+    """Factory from a BackboneConfig: ``resnet*``, ``swin*`` (the variant
+    named and ``cfg.swin_window_size``) and ``pvt*`` (linear SRA, as
+    ``build_pvt``); any other name raises ``ValueError``.  Each backbone
+    names its output channels in ``out_channels``."""
+    name = cfg.name
+    if name.startswith("resnet"):
+        return ResNet(depth=cfg.resnet_depth, out_features=cfg.out_features)
+    if name.startswith("swin"):
+        from univs_tpu_torch.models.backbones.swin import build_swin
+
+        return build_swin(cfg)
+    if name.startswith("pvt"):
+        from univs_tpu_torch.models.backbones.pvt import build_pvt
+
+        return build_pvt(name)
+    raise ValueError(f"unknown backbone {name!r}")

@@ -15,7 +15,7 @@ rebuilt from the query index inside ``msda_rows``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence
 
 import torch
 import torch.nn as nn
@@ -115,7 +115,9 @@ class MSDeformAttnPixelDecoder(nn.Module):
         self.mask_features = nn.Conv2d(C, mask_dim, 1)
         self.pe = SinePositionEncoding3D(num_pos_feats=C // 2, normalize=True)
 
-    def forward(self, features: Dict[str, torch.Tensor]):
+    def _tokens(self, features: Dict[str, torch.Tensor]):
+        """Per-level 1x1 proj + GN, flattened coarse to fine: (src [N, S, C],
+        pos [1, S, C] with the level embeds, spatial shapes)."""
         C = self.hidden_dim
         dtype = self.level_embed.dtype
         srcs, poss, shapes = [], [], []
@@ -127,13 +129,13 @@ class MSDeformAttnPixelDecoder(nn.Module):
             pos2d = self.pe.grid2d(h, w, device=x.device).to(dtype)
             poss.append(pos2d.reshape(1, h * w, C) + self.level_embed[i][None, None])
             shapes.append((h, w))
-        src = torch.cat(srcs, dim=1).contiguous()
-        pos = torch.cat(poss, dim=1)
-        spatial_shapes: Tuple[Tuple[int, int], ...] = tuple(shapes)
+        return torch.cat(srcs, dim=1).contiguous(), torch.cat(poss, dim=1), tuple(shapes)
 
-        for li in range(self.num_layers):
-            src = getattr(self, f"encoder_layer_{li}")(src, pos, spatial_shapes)
-
+    def _outputs(self, src: torch.Tensor, spatial_shapes, features: Dict[str, torch.Tensor]):
+        """Encoder tokens -> the four outputs of ``forward``: the levels as
+        maps, the FPN step to 1/4 and the mask-features conv."""
+        C = self.hidden_dim
+        dtype = self.level_embed.dtype
         outs: List[torch.Tensor] = []
         start = 0
         n = src.shape[0]
@@ -152,3 +154,9 @@ class MSDeformAttnPixelDecoder(nn.Module):
         mask_features_bfe_conv = outs[-1]
         mask_features = _nhwc(self.mask_features(_nchw(mask_features_bfe_conv)))
         return mask_features, mask_features_bfe_conv, outs[0], outs[:3]
+
+    def forward(self, features: Dict[str, torch.Tensor]):
+        src, pos, spatial_shapes = self._tokens(features)
+        for li in range(self.num_layers):
+            src = getattr(self, f"encoder_layer_{li}")(src, pos, spatial_shapes)
+        return self._outputs(src, spatial_shapes, features)

@@ -114,6 +114,21 @@ class FFNBlock(nn.Module):
         return self.norm(x + ffn(x))
 
 
+class LayerNorm32(nn.LayerNorm):
+    """LayerNorm computed in float32 with float32 scale and bias, its
+    result cast back to the input's dtype (flax ``LayerNorm(dtype=
+    jnp.float32)`` on the JAX package's float32 params).  The model
+    builders keep the parameters named in ``keep_float32`` in float32 when
+    they cast a model to its compute dtype (``models/univs.py:_place``)."""
+
+    keep_float32 = ("weight", "bias")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.to(torch.float32), self.normalized_shape, self.weight.to(torch.float32),
+                         self.bias.to(torch.float32), self.eps)
+        return y.to(x.dtype)
+
+
 class MLP(nn.Module):
     """N-layer MLP with ReLU between layers (DETR's mask-embed head)."""
 

@@ -5,7 +5,11 @@ top-level names (``backbone``, ``pixel_decoder``, ``decoder``), so a
 JAX param tree converts onto it with ``utils.weights`` and the port's
 own seeded init fills it without JAX.  The model builders are entry
 points: they place the model on the card unless ``device="cpu"`` is
-passed, and raise when no card is present.
+passed, and raise when no card is present.  The pixel decoder's input
+channels are those of the backbone built (``out_channels``).  Casting to
+the compute dtype keeps in float32 the parameters a module names in
+``keep_float32`` (Swin's and PVT's LayerNorms and bias table, VLFuse's
+gammas), which the JAX package holds and applies in float32.
 """
 
 from __future__ import annotations
@@ -16,12 +20,10 @@ import torch
 import torch.nn as nn
 
 from univs_tpu_torch.config import UniVSConfig
-from univs_tpu_torch.models.backbones.resnet import build_backbone as _build_resnet
+from univs_tpu_torch.models.backbones.resnet import build_backbone as _build_backbone
 from univs_tpu_torch.models.decoder import UniVSDecoder
 from univs_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from univs_tpu_torch.utils.device import resolve_device
-
-_RESNET_CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
 
 
 def compute_dtype_of(cfg: UniVSConfig) -> torch.dtype:
@@ -29,14 +31,23 @@ def compute_dtype_of(cfg: UniVSConfig) -> torch.dtype:
 
 
 def _place(module: nn.Module, cfg: UniVSConfig, device) -> nn.Module:
-    dev = resolve_device(device)
-    return module.to(device=dev, dtype=compute_dtype_of(cfg)).eval().requires_grad_(False)
+    """Move to ``device`` and cast floating tensors to the compute dtype,
+    except those each module names in ``keep_float32``."""
+    dtype = compute_dtype_of(cfg)
+    module.to(device=resolve_device(device))
+    for mod in module.modules():
+        keep = getattr(mod, "keep_float32", ())
+        for tensors in (mod._parameters, mod._buffers):
+            for name, t in tensors.items():
+                if t is not None and t.is_floating_point() and name not in keep:
+                    t.data = t.data.to(dtype)
+    return module.eval().requires_grad_(False)
 
 
-def _pixel_decoder(cfg: UniVSConfig) -> MSDeformAttnPixelDecoder:
+def _pixel_decoder(cfg: UniVSConfig, in_channels) -> MSDeformAttnPixelDecoder:
     c = cfg.pixel_decoder
     return MSDeformAttnPixelDecoder(
-        _RESNET_CHANNELS, hidden_dim=c.hidden_dim, mask_dim=c.mask_dim, num_layers=c.num_layers,
+        in_channels, hidden_dim=c.hidden_dim, mask_dim=c.mask_dim, num_layers=c.num_layers,
         num_heads=c.num_heads, num_points=c.num_points, ffn_dim=c.ffn_dim,
         transformer_in_features=c.transformer_in_features,
     )
@@ -53,11 +64,13 @@ def _decoder(cfg: UniVSConfig) -> UniVSDecoder:
 
 
 def build_backbone(cfg: UniVSConfig, device=None) -> nn.Module:
-    return _place(_build_resnet(cfg.backbone), cfg, device)
+    return _place(_build_backbone(cfg.backbone), cfg, device)
 
 
 def build_pixel_decoder(cfg: UniVSConfig, device=None) -> MSDeformAttnPixelDecoder:
-    return _place(_pixel_decoder(cfg), cfg, device)
+    with torch.device("meta"):  # the backbone's channels, no weights allocated
+        channels = _build_backbone(cfg.backbone).out_channels
+    return _place(_pixel_decoder(cfg, channels), cfg, device)
 
 
 def build_decoder(cfg: UniVSConfig, device=None) -> UniVSDecoder:
@@ -71,8 +84,8 @@ class UniVSModel(nn.Module):
     def __init__(self, cfg: UniVSConfig):
         super().__init__()
         self.cfg = cfg
-        self.backbone = _build_resnet(cfg.backbone)
-        self.pixel_decoder = _pixel_decoder(cfg)
+        self.backbone = _build_backbone(cfg.backbone)
+        self.pixel_decoder = _pixel_decoder(cfg, self.backbone.out_channels)
         self.decoder = _decoder(cfg)
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:

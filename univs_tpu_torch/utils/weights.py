@@ -12,11 +12,16 @@ read in the other direction):
 - LayerNorm / GroupNorm ``scale`` -> ``weight``; ``bias`` -> ``bias``;
 - FrozenBN ``{scale, bias, mean, var}`` -> ``{weight, bias,
   running_mean, running_var}``;
-- the pixel decoder's ``level_embed_{i}`` [C] -> rows of ``level_embed``
-  [L, C] (the reference's ``transformer.level_embed``);
+- the pixel decoder's (and the VL pixel decoder's) ``level_embed_{i}``
+  [C] -> rows of ``level_embed`` [L, C] (the reference's
+  ``transformer.level_embed``);
+- a depthwise Conv ``kernel`` HWIO ``[3, 3, 1, hidden]`` -> OIHW
+  ``[hidden, 1, 3, 3]`` by the same transpose (PVT's ``dwconv``);
 - MultiHeadAttention q/k/v/out Denses -> the four Linears of the same
   names (``transformer_layers.py:27-72``);
-- any other leaf (``query_feat``, ``cls_temp`` ...) as it is.
+- any other leaf (``query_feat``, ``cls_temp``, Swin's
+  ``relative_position_bias_table``, VLFuse's ``gamma_v`` / ``gamma_l``
+  ...) as it is.
 
 ``load_state_dict_strict`` raises on a key left unmapped on either side
 and on any shape mismatch.
@@ -25,7 +30,9 @@ Init (``init_params``): flax's defaults (LeCun-normal kernels, zero
 biases, unit norms, N(0, 1) embeddings) from a ``torch.Generator``; the
 CLIP text tower's raw parameters from the JAX package's initializers
 (token embedding N(0, 0.02), positional N(0, 0.01), projection
-N(0, width^-0.5)); and the deformable-DETR init of the sampling offsets (zero kernel, the
+N(0, width^-0.5)); Swin's bias tables as truncated N(0, 0.02) and
+VLFuse's gammas as the constant 1/6 (``swin.py:60-65``,
+``pixel_decoder_vl.py:99-100``); and the deformable-DETR init of the sampling offsets (zero kernel, the
 direction-grid bias — ``pixel_decoder.py:48-64``) and of the attention
 weights (zero).  Without it the sampling kernels would sample at
 degenerate offsets.
@@ -131,10 +138,8 @@ def load_state_dict_strict(model: nn.Module, state: Mapping) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _lecun_normal_(w: torch.Tensor, g: torch.Generator) -> None:
-    fan_in = w[0].numel()  # Linear [out, in], Conv [out, in, kh, kw]
-    # flax lecun_normal: truncated normal (+-2 std) rescaled to unit variance
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+def _truncated_normal_(w: torch.Tensor, g: torch.Generator, std: float) -> None:
+    """Normal samples redrawn until within +-2, times ``std``."""
     x = torch.randn(w.shape, generator=g)
     while True:
         bad = x.abs() > 2.0
@@ -144,13 +149,21 @@ def _lecun_normal_(w: torch.Tensor, g: torch.Generator) -> None:
     w.copy_(x * std)
 
 
+def _lecun_normal_(w: torch.Tensor, g: torch.Generator) -> None:
+    fan_in = w[0].numel()  # Linear [out, in], Conv [out, in / groups, kh, kw]
+    # flax lecun_normal: truncated normal (+-2 std) rescaled to unit variance
+    _truncated_normal_(w, g, math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int) -> None:
     """Seeded init of every parameter of a port model (see module doc)."""
     from univs_tpu_torch.models.backbones.resnet import FrozenBatchNorm
+    from univs_tpu_torch.models.backbones.swin import WindowAttention
     from univs_tpu_torch.models.clip_text import ClipTextEncoder
     from univs_tpu_torch.models.decoder import UniVSDecoder
     from univs_tpu_torch.models.pixel_decoder import MSDeformAttnLayer, MSDeformAttnPixelDecoder
+    from univs_tpu_torch.models.pixel_decoder_vl import VLFuse
 
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
@@ -181,6 +194,11 @@ def init_params(model: nn.Module, seed: int) -> None:
                 p.fill_(math.log(1 / 0.07))
             for p in (mod.prompt_detection, mod.prompt_sot, mod.prompt_grounding):
                 p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+        elif isinstance(mod, WindowAttention):
+            _truncated_normal_(mod.relative_position_bias_table, g, 0.02)
+        elif isinstance(mod, VLFuse):
+            mod.gamma_v.fill_(1 / 6)
+            mod.gamma_l.fill_(1 / 6)
         elif isinstance(mod, ClipTextEncoder):
             for p, std in ((mod.token_embedding, 0.02), (mod.positional_embedding, 0.01),
                            (mod.text_projection, mod.width ** -0.5)):
