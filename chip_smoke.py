@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port (``univs_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, on one card
+    python3 chip_smoke.py pipeline   # the pipelining phase alone (two cards)
 
-It takes no arguments and runs every phase, in order (any failure exits
+With no arguments it runs every phase, in order (any failure exits
 non-zero):
   device  — torch.cuda present; the card's name and power limit
             (``nvidia-smi --query-gpu=name,power.limit``);
@@ -94,6 +95,28 @@ non-zero):
               + ``semantic_features_to_masks`` and ``ImageDriver.run`` on
               one frame (COCO panoptic, K=133) + ``panoptic_inference``;
               A/B/C at 6 x clips (6 for the image);
+            * ``BatchedVISServer.run_vis`` (serving) with the VIS phase's
+              model: batch 2, capacity 40, K=40, two seeded videos of 30
+              and 25 frames; videos/s, aggregate FPS, peak memory; A/B/C
+              at 6 x batched window encodes (one encode over both videos'
+              frames); with the gates open, RLEs identical to
+              ``EntityDriver.run_vis`` for the longer video and for both
+              videos of an equal-length batch, each with entities;
+            * ``EntityDriver(pipeline_devices=...)`` on (cuda:0, cuda:1)
+              when two cards are visible, else (cuda:0, cuda:0), over a
+              45-frame video (two windows, the second encoded ahead): FPS
+              of both, with the gates open RLEs identical to the
+              unpipelined driver (``python3 chip_smoke.py pipeline`` runs
+              this phase alone, for a machine with two cards);
+            * the UniVS-R50 train step at full width (bf16 over float32
+              masters, B=2 clips of T=2 frames of ``synth_blob_video`` on
+              the 1024x1024 canvas, 40 instance slots, 12,544 points, the
+              10 supervised layers, a seeded [3938, 640] category bank):
+              detection (1 warm-up + 5 timed steps), sot and grounding
+              (1 + 2 each); step ms split into forward, backward and
+              optimizer, host JV s a step, peak memory, every logged loss
+              finite, A/B/C at 6 a forward and 0 outside it; a profile
+              of one detection step;
             * ``EntityDriver.run_vis`` for UniVS Swin-L (window 12, as
               Mask2Former's Swin-L configs) with the R50 headline's
               settings and video: 3 timed runs after a warm-up, peak
@@ -102,6 +125,12 @@ non-zero):
               step alone, a profile of one more run and of one window's
               backbone; and for PVTv2-b2 (linear SRA) one run; A/B/C at
               6 x window encodes, D/E/F 0;
+  grads   — kernels A, B and C as ``autograd.Function``s (the kernel
+            forward, the plain law's VJP backward) against their plain
+            laws at the full-width encoder shape of the training batch
+            (4 frames at 1024x1024), float32 and bfloat16: the forward
+            within the kernel checks' tolerance, the input gradients
+            against ``torch.autograd.grad`` of the plain law;
   tiny    — each driver path against a reference on a small input: the
             tiny config's ``run_vis`` (over R50, ``swin_tiny`` with every
             stage map padded, and ``pvt_v2_b0``) / ``run_vss`` /
@@ -109,7 +138,9 @@ non-zero):
             ``FastVISDriver.run`` / ``ImageDriver.run`` and the VL pixel
             decoder in float32 on the card (through the kernels) and on
             the CPU (plain laws); the expressions tokenized once for both
-            sides.
+            sides; one train step of each task (detection, sot,
+            grounding) at a tiny training config, losses within 1e-3 and
+            Hungarian assignments identical.
 
 Prints one JSON line per check, the ``kernels`` summary line and the card
 line, and last ``{"ok": true, "device": {...}}``.  Exits with a non-zero
@@ -119,6 +150,7 @@ cannot be imported.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -1227,8 +1259,6 @@ def run_main_path():
     """``EntityDriver.run_vis`` for UniVS-R50 VIS at full width on the card.
     Returns (ok, launches of each kernel in the first timed run, the
     driver)."""
-    import dataclasses
-
     import torch
 
     from univs_tpu_torch.config import UniVSConfig
@@ -1258,8 +1288,7 @@ def run_main_path():
     # bit-pack on the card) and the host RLE run at full resolution; same
     # model, one run (the host's numpy RLE grows with the runs in each
     # mask, so the frame count bounds this phase)
-    relaxed = dataclasses.replace(cfg, inference=dataclasses.replace(
-        cfg.inference, apply_cls_thres=0.0, consistency_thres=(-1.0, 0.5)))
+    relaxed = with_gates_open(cfg)
     open_driver = EntityDriver(relaxed, driver.model, num_classes=K, capacity=E)
     Vo = 10
     t0 = time.perf_counter()
@@ -1447,8 +1476,6 @@ def run_vps_path(model):
     open so that the stitching runs at full resolution on what the
     random weights admit; the stitching alone on seeded windows of 15
     and 60 valid slots.  Returns (ok, launches of the first timed run)."""
-    import dataclasses
-
     import torch
 
     from univs_tpu_torch.inference.driver import EntityDriver
@@ -1473,8 +1500,7 @@ def run_vps_path(model):
            "things": len(VIPSEG_THING_IDS), "window_encodes": n_enc, "warmup_s": warm_s,
            "run_s": run_s, "fps_runs": [V / t for t in run_s], "segments": len(info),
            "split": split, "launches": launches, "launches_ok": counts_ok}
-    relaxed = dataclasses.replace(cfg, inference=dataclasses.replace(
-        cfg.inference, apply_cls_thres=0.0, consistency_thres=(-1.0, 0.5)))
+    relaxed = with_gates_open(cfg)
     open_driver = EntityDriver(relaxed, model, num_classes=K, capacity=E)
     Vo = 10
     open_pan, open_info, rec["gates_open"] = vps_split(open_driver, video[:Vo], cls_emb)
@@ -2286,7 +2312,517 @@ def reference_check_image() -> bool:
     return bool(ok)
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# training: gradients of A, B and C, the train step at full width, and
+# the tiny train step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+# the training canvas: LSJ 1024x1024 (the reference's mapper), levels at
+# 1/32, 1/16, 1/8
+TRAIN_HW = 1024
+TRAIN_SHAPES = ((32, 32), (64, 64), (128, 128))
+# gradient tolerances against autograd of the plain law (both backward
+# passes are the plain law's; only the order of the gather backward's
+# atomic adds differs): float32 1e-5, bfloat16 one rounding, 1e-2, of
+# each gradient's largest magnitude
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the training batch's frames: B = 2 clips x T = 2
+TRAIN_FRAMES = 4
+
+
+def grad_checks() -> bool:
+    """Each of A, B and C as its ``torch.autograd.Function`` (the kernel
+    forward, the plain law's vector-Jacobian product backward) against
+    the plain law, at the full-width encoder shape of the training batch
+    (4 frames at 1024x1024), float32 and bfloat16: the kernel's forward
+    within ``TOL`` of the plain law's (the train path's only forward of
+    these kernels), every input's gradient within ``GRAD_TOL`` of
+    ``torch.autograd.grad`` of the plain law, relative to its scale, and
+    in its input's dtype."""
+    import torch
+
+    from univs_tpu_torch.ops import deformable_attention as da
+    from univs_tpu_torch.ops import fused_mlp, msda_rows
+
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        x = make_inputs(TRAIN_SHAPES, FULL, TRAIN_FRAMES, dtype, seed=4321)
+        M, P = x["M"], x["P"]
+        leaf = lambda t: t.detach().clone().requires_grad_(True)
+        ff = x["ffn"]
+        loc0 = msda_rows.msda_rows_plain(x["q"], x["wo"], x["bo"], x["wa"], x["ba"], TRAIN_SHAPES,
+                                         M, P).detach()
+        cases = {
+            "msda_rows": ((x["q"], x["wo"], x["bo"], x["wa"], x["ba"]),
+                          lambda a: msda_rows.msda_rows(*a, TRAIN_SHAPES, M, P),
+                          lambda a: msda_rows.msda_rows_plain(*a, TRAIN_SHAPES, M, P)),
+            "msda_sample": ((x["value"], loc0),
+                            lambda a: da.msda_sample(a[0], TRAIN_SHAPES, a[1]),
+                            lambda a: da.msda_sample_plain(a[0], TRAIN_SHAPES, a[1])),
+            "fused_ffn_ln": ((x["src"], x["attn"], *(ff[k] for k in
+                                                      ("g1", "c1", "w1", "b1", "w2", "b2", "g2", "c2"))),
+                             lambda a: fused_mlp.fused_ffn_ln(*a),
+                             lambda a: fused_mlp.fused_ffn_ln_plain(*a)),
+        }
+        for name, (inputs, fn, plain) in cases.items():
+            a = [leaf(t) for t in inputs]
+            out = fn(a)
+            g = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(out)
+            got = torch.autograd.grad(out, a, g)
+            b = [leaf(t) for t in inputs]
+            want_out = plain(b)
+            want = torch.autograd.grad(want_out, b, g)
+            fwd = compare(name, out.detach(), want_out.detach(), dtype)
+            ok &= fwd["pass"]
+            errs, scales = [], []
+            for gg, ww, t in zip(got, want, inputs):
+                scale = float(ww.float().abs().max())
+                errs.append(float((gg.float() - ww.float()).abs().max()))
+                scales.append(scale)
+                ok_i = gg.dtype == t.dtype and errs[-1] <= GRAD_TOL[str(dtype)[6:]] * max(scale, 1e-30)
+                ok &= bool(ok_i)
+            rec_ok = all(e <= GRAD_TOL[str(dtype)[6:]] * max(s, 1e-30) for e, s in zip(errs, scales))
+            emit({"check": f"{name} forward and gradient", "dtype": str(dtype)[6:],
+                  "frames": TRAIN_FRAMES, "height": TRAIN_HW, "width": TRAIN_HW,
+                  "forward": fwd, "inputs": len(inputs),
+                  "max_abs_err": errs, "grad_scale": scales, "tol": GRAD_TOL[str(dtype)[6:]],
+                  "dtypes_ok": all(gg.dtype == t.dtype for gg, t in zip(got, inputs)),
+                  "pass": bool(rec_ok and fwd["pass"])})
+            del a, b, got, want, out, want_out
+        del x, loc0
+        torch.cuda.empty_cache()
+    return bool(ok)
+
+
+def full_train_batch(cfg, task: str, seed: int, B: int = 2, n_valid: int = 8,
+                     expressions: int = 8):
+    """A seeded training batch at the reference's stage-2 shape: B clips of
+    T frames of ``synth_blob_video`` on the 1024x1024 canvas, 40 instance
+    slots of which ``n_valid`` hold seeded ellipses (GT masks at 1/4,
+    moving a few pixels a frame) with seeded labels of the 3938-class
+    bank, collated by ``collate_train_batch`` (40 detection prompt slots,
+    the negatives drawn by the loader); grounding adds ``expressions``
+    seeded [1 + 77, 640] expression stacks bound to the first targets."""
+    import torch
+
+    from univs_tpu_torch.data.loader import collate_train_batch
+    from univs_tpu_torch.utils.synth import synth_blob_video
+
+    rng = np.random.RandomState(seed)
+    T, S, N = cfg.num_frames, TRAIN_HW, cfg.prompt.num_max_instances
+    h4 = S // 4
+    K, Dt = cfg.decoder.num_classes, cfg.decoder.clip_cls_emb_dim
+    bank = rng.randn(K, Dt).astype(np.float32)
+    yy, xx = np.mgrid[0:h4, 0:h4]
+    samples = []
+    for b in range(B):
+        masks = np.zeros((N, T, h4, h4), np.float32)
+        valid = np.zeros(N, bool)
+        valid[:n_valid] = True
+        for n in range(n_valid):
+            cy, cx = rng.uniform(40, h4 - 40, 2)
+            ry, rx = rng.uniform(8, 40, 2)
+            vy, vx = rng.uniform(-4, 4, 2)
+            for t in range(T):
+                masks[n, t] = (((yy - cy - vy * t) / ry) ** 2 + ((xx - cx - vx * t) / rx) ** 2) <= 1
+        ids = np.where(valid[:, None], np.arange(N)[:, None], -1).repeat(T, 1).astype(np.int32)
+        labels = np.where(valid, rng.randint(1, K + 1, N), 0).astype(np.int32)
+        samples.append(dict(images=synth_blob_video(T, S, S, seed=seed * 100 + b),
+                            frame_indices=np.arange(T, dtype=np.int32), labels=labels, ids=ids,
+                            masks=masks, valid=valid))
+    batch = collate_train_batch(samples, bank, np.ones(K, bool), N)
+    if task == "grounding":
+        Qe = expressions
+        batch.exp_embs = torch.as_tensor(rng.randn(B, Qe, 78, Dt).astype(np.float32))
+        batch.exp_valid = torch.ones((B, Qe), dtype=torch.bool)
+        batch.targets.prompt_obj_ids = torch.arange(Qe)[None].expand(B, Qe).clone()
+    return batch
+
+
+class ForwardLaunches:
+    """Launch counts inside the model's forward calls while the ``with``
+    block runs (forward pre-hook / hook on the model): the launches
+    outside them are the criterion's, the backward's and the optimizer's."""
+
+    def __init__(self, model):
+        self.model, self.counts = model, {}
+
+    def __enter__(self):
+        from univs_tpu_torch.ops import kernels
+
+        def pre(*_):
+            self._before = kernels.launch_counts()
+
+        def post(*_):
+            after = kernels.launch_counts()
+            for k in after:
+                self.counts[k] = self.counts.get(k, 0) + after[k] - self._before[k]
+
+        self._h = [self.model.register_forward_pre_hook(pre), self.model.register_forward_hook(post)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._h:
+            h.remove()
+
+
+def run_train_path():
+    """The UniVS-R50 train step at full width on the card: bf16 compute
+    over float32 masters, deep supervision, 12,544 points, B=2 clips of
+    T=2 frames at 1024x1024, 40 instance slots, a seeded [3938, 640]
+    category bank; detection 1 warm-up + 5 timed steps, sot and grounding
+    1 + 2 each, one model and state through the three tasks.  Per task:
+    step ms split into forward (criterion included), backward and
+    optimizer (CUDA events), host JV seconds a step, peak memory, every
+    logged loss (finite), the launches of the timed steps in the forward
+    and outside it; a profile of one more detection step (device busy ms,
+    top kernels, the idle share over the unprofiled steps' wall time).
+    Returns (ok, {path: launches})."""
+    import torch
+
+    from univs_tpu_torch.config import UniVSConfig
+    from univs_tpu_torch.losses import criterion as crit_mod
+    from univs_tpu_torch.models.univs import UniVSModel, build_model
+    from univs_tpu_torch.parallel.train_state import create_train_state, make_train_step
+    from univs_tpu_torch.utils import weights
+    from univs_tpu_torch.utils.draws import make_key
+
+    cfg = UniVSConfig(dtype="bfloat16")
+    f32 = UniVSModel(cfg)
+    weights.init_params(f32, seed=0)
+    masters = {k: v.clone() for k, v in f32.state_dict().items()}
+    del f32
+    model = build_model(cfg, masters, device="cuda")
+    state = create_train_state(cfg, model, masters)
+    del masters
+    key = make_key(2024)  # on the card, as every entry point
+    ok, by_path = True, {}
+    for task, timed in (("detection", 5), ("sot", 2), ("grounding", 2)):
+        batch = full_train_batch(cfg, task, seed=11).to("cuda")
+        timings: dict = {}
+        step = make_train_step(cfg, model, task, timings=timings)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, logged = step(state, batch, key)  # warm-up: cuDNN plans, allocator
+        warm_s = time.perf_counter() - t0
+        timings.clear()
+        t0 = time.perf_counter()
+        with HostTime(crit_mod, "hungarian_batch") as jv, ForwardLaunches(model) as fwd:
+            (state, logged), launches = counted(lambda: [step(state, batch, key)
+                                                         for _ in range(timed)][-1])
+        wall_s = (time.perf_counter() - t0) / timed
+        losses = {k: float(v) for k, v in logged.items()}
+        finite = all(np.isfinite(v) for v in losses.values())
+        outside = {k: launches[k] - fwd.counts.get(k, 0) for k in launches}
+        expected = expected_launches(timed, cfg.pixel_decoder.num_layers)
+        counts_ok = (launches == expected and fwd.counts == expected
+                     and not any(outside.values()))
+        split = {k: timings[k] / timed for k in ("forward_ms", "backward_ms", "optimizer_ms")}
+        emit({"path": f"train {task}", "config": "UniVS-R50, bf16 over float32 masters",
+              "clips": batch.images.shape[0], "frames": cfg.num_frames, "height": TRAIN_HW,
+              "width": TRAIN_HW, "instance_slots": batch.targets.valid.shape[1],
+              "prompt_slots": int(batch.targets.prompt_obj_ids.shape[1]) if task != "sot"
+              else batch.targets.valid.shape[1],
+              "points": cfg.train.num_points, "supervised_layers": cfg.decoder.num_layers + 1,
+              "warmup_s": warm_s, "timed_steps": timed,
+              "step_ms": sum(split.values()), **split, "step_wall_ms": wall_s * 1e3,
+              "host_jv_s_per_step": jv.s / timed, "jv_calls": jv.calls,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "losses": losses, "losses_finite": finite, "step": state.step,
+              "launches": launches, "launches_forward": fwd.counts,
+              "launches_outside_forward": outside, "launches_expected": expected,
+              "launches_ok": counts_ok})
+        ok &= finite and counts_ok
+        by_path[f"train {task}"] = launches
+        if task == "detection":  # one more step under the profiler
+            prof = profile_call("train detection step", lambda: step(state, batch, key))
+            if "device_busy_ms" in prof:
+                prof["device_idle_share"] = max(0.0, 1.0 - prof["device_busy_ms"] / (wall_s * 1e3))
+            emit(prof)
+        del batch
+        torch.cuda.empty_cache()
+    del model, state
+    torch.cuda.empty_cache()
+    return bool(ok), by_path
+
+
+# the tiny train step, card against CPU: float32 on both sides with
+# cuDNN's TF32 off, the same draws; the kernels' forward sums in another
+# order than the plain laws and cuDNN's convolutions than the CPU's ->
+# each logged loss within 1e-3 of its magnitude (at least 1e-3)
+TINY_TRAIN_TOL = 1e-3
+
+
+def reference_check_train() -> bool:
+    """One train step of each task (detection, sot, grounding) at the tiny
+    training config (depth-10 ResNet, one encoder and one decoder layer,
+    64x64 clips) on the card and on the CPU from the same weights, batch
+    and draws: every logged loss within ``TINY_TRAIN_TOL`` and every
+    layer's Hungarian assignment identical."""
+    import dataclasses
+
+    import torch
+
+    from univs_tpu_torch.config import TrainConfig, tiny_test_config
+    from univs_tpu_torch.losses.criterion import TrainTargets
+    from univs_tpu_torch.models.univs import build_model
+    from univs_tpu_torch.parallel.train_state import (TrainBatch, create_train_state,
+                                                      make_train_step)
+    from univs_tpu_torch.utils.draws import make_key
+
+    base = tiny_test_config()
+    cfg = base.replace(train=TrainConfig(num_points=32, oversample_ratio=2.0),
+                       backbone=dataclasses.replace(base.backbone, resnet_depth=10),
+                       decoder=dataclasses.replace(base.decoder, num_layers=1),
+                       pixel_decoder=dataclasses.replace(base.pixel_decoder, num_layers=1))
+    rng = np.random.RandomState(5)
+    B, T, S, N, K = 2, 2, 64, 3, 4
+    Dt = cfg.decoder.clip_cls_emb_dim
+    bank = torch.as_tensor(rng.randn(K, Dt).astype(np.float32))
+    labels = torch.as_tensor(rng.randint(1, K + 1, (B, N)))
+    poi = torch.arange(N)[None].expand(B, N).clone()
+    targets = TrainTargets(labels=labels, ids=poi[:, :, None].expand(B, N, T).clone(),
+                           masks=torch.as_tensor((rng.rand(B, N, T, S // 4, S // 4) > 0.7)
+                                                 .astype(np.float32)),
+                           valid=torch.ones((B, N), dtype=torch.bool), prompt_obj_ids=poi)
+    batch = TrainBatch(images=torch.as_tensor((rng.rand(B, T, S, S, 3) * 255).astype(np.float32)),
+                       frame_indices=torch.arange(T)[None].expand(B, T).clone(), targets=targets,
+                       prompt_category_embs=bank[labels - 1],
+                       prompt_category_valid=torch.ones((B, N), dtype=torch.bool),
+                       category_bank=bank, category_bank_valid=torch.ones(K, dtype=torch.bool),
+                       exp_embs=torch.as_tensor(rng.randn(B, N, 8, Dt).astype(np.float32)),
+                       exp_valid=torch.ones((B, N), dtype=torch.bool))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    ok = True
+    try:
+        for task in ("detection", "sot", "grounding"):
+            res = {}
+            for dev in ("cuda", "cpu"):
+                model = build_model(cfg, None, seed=9, device=dev)
+                state = create_train_state(cfg, model)
+                step = make_train_step(cfg, model, task)
+                # the same draws on both sides: made on the CPU, moved by the step
+                key = make_key(3, device="cpu")
+                if dev == "cuda":
+                    (_, logged), launches = counted(lambda: step(state, batch.to(dev), key))
+                else:
+                    _, logged = step(state, batch.to(dev), key)
+                res[dev] = ({k: float(v) for k, v in logged.items()},
+                            step.criterion.last_matches.cpu().numpy())
+            (lc, mc), (lp, mp_) = res["cuda"], res["cpu"]
+            errs = {k: abs(lc[k] - lp[k]) / max(abs(lp[k]), 1.0) for k in lp}
+            same = bool(np.array_equal(mc, mp_))
+            launched = all(launches[k] == cfg.pixel_decoder.num_layers for k in ENCODER_KERNELS)
+            task_ok = (set(lc) == set(lp) and max(errs.values()) <= TINY_TRAIN_TOL and same
+                       and launched)
+            emit({"check": f"train_step_tiny_{task}_cuda_vs_cpu", "losses": len(lp),
+                  "max_rel_loss_err": max(errs.values()), "tol": TINY_TRAIN_TOL,
+                  "total_loss_cuda": lc["total_loss"], "total_loss_cpu": lp["total_loss"],
+                  "matches_identical": same, "kernels_launched": launched, "pass": bool(task_ok)})
+            ok &= task_ok
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return bool(ok)
+
+
+# ---------------------------------------------------------------------------
+# serving: the batched server and two-device pipelining
+# ---------------------------------------------------------------------------
+
+SERVE_LENGTHS = (30, 25)
+# the pipelined video spans two windows, so the next window's encode is
+# issued ahead of the clip steps
+PIPELINE_FRAMES = 45
+
+
+def same_rles(got, want) -> bool:
+    return ([r["obj_id"] for r in got] == [r["obj_id"] for r in want]
+            and all(g["segmentations"] == w["segmentations"] for g, w in zip(got, want)))
+
+
+def rle_iou(got, want):
+    """min and mean mask IoU over the entity-frames of the entities both
+    result lists hold (by obj_id); None when they share none."""
+    from univs_tpu_torch.utils import rle
+
+    by_id = {r["obj_id"]: r for r in want}
+    ious = []
+    for g in got:
+        w = by_id.get(g["obj_id"])
+        for a, b in zip(g["segmentations"], w["segmentations"] if w else []):
+            ma, mb = rle.decode(a).astype(bool), rle.decode(b).astype(bool)
+            union = int((ma | mb).sum())
+            ious.append(int((ma & mb).sum()) / union if union else 1.0)
+    return [min(ious), float(np.mean(ious))] if ious else None
+
+
+def with_gates_open(cfg):
+    """The config with the class and consistency gates open, so that
+    seeded weights admit entities and the emission, the drain (upsample,
+    threshold, bit-pack) and the host RLE run."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, inference=dataclasses.replace(
+        cfg.inference, apply_cls_thres=0.0, consistency_thres=(-1.0, 0.5)))
+
+
+def run_serving_path(model):
+    """``BatchedVISServer`` for UniVS-R50 VIS at full width (bf16, 640x960,
+    batch 2, capacity 40, K=40, T=5, stride 1, window 30) on two seeded
+    videos of 30 and 25 frames, timed after a warm-up (videos/s,
+    aggregate FPS), peak memory, A/B/C at 6 x batched window encodes.
+    Then with the gates open, against ``EntityDriver.run_vis`` with the
+    same model: the (30, 25) batch's longer video identical, and of a
+    second batch of equal length (30, 30) the first video identical and
+    the second identical to the driver fed with its half of the batched
+    window encode (the batched and the lone encode's difference, and the
+    lone-encode RLEs' equality and mask IoU, printed), each video with
+    at least one entity; the 25-frame video's results cut to its length.  (A shorter video's padded clips still update its pool,
+    the JAX server's documented deviation: its equality with the driver is
+    printed, not required; the CPU tests hold it to the JAX server.)
+    Returns (ok, launches of the timed run)."""
+    import torch
+
+    from univs_tpu_torch.config import UniVSConfig
+    from univs_tpu_torch.inference.driver import EntityDriver
+    from univs_tpu_torch.inference.serving import BatchedVISServer
+
+    cfg = UniVSConfig(dtype="bfloat16")
+    K, E = 40, 40
+    rng = np.random.RandomState(21)
+    videos = [(rng.rand(n, *FULL_HW, 3) * 255).astype(np.uint8) for n in (*SERVE_LENGTHS, 30)]
+    cls_emb = torch.as_tensor(rng.randn(K, cfg.decoder.clip_cls_emb_dim).astype(np.float32))
+    srv = BatchedVISServer(cfg, model, num_classes=K, capacity=E, batch_size=2)
+    pair = videos[:2]
+    n_enc = srv.num_window_encodes(max(SERVE_LENGTHS))
+    warm_s = timed_runs(lambda: srv.run_vis(pair, cls_emb), 1)[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got, launches = counted(lambda: srv.run_vis(pair, cls_emb))
+    run_s = [time.perf_counter() - t0] + timed_runs(lambda: srv.run_vis(pair, cls_emb), 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    single = EntityDriver(cfg, model, num_classes=K, capacity=E)
+    t0 = time.perf_counter()
+    want = [single.run_vis(v, cls_emb) for v in pair]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    expected = expected_launches(n_enc, cfg.pixel_decoder.num_layers)
+    counts_ok = check_launches("BatchedVISServer", launches, expected)
+    out_ok = all(check_results(r, n, *FULL_HW, E, K) for r, n in zip(got, SERVE_LENGTHS))
+    out_ok &= same_rles(got[0], want[0])
+
+    relaxed = with_gates_open(cfg)
+    srv_open = BatchedVISServer(relaxed, model, num_classes=K, capacity=E, batch_size=2)
+    single_open = EntityDriver(relaxed, model, num_classes=K, capacity=E)
+    want_open = [single_open.run_vis(v, cls_emb) for v in videos]
+    unequal = srv_open.run_vis(videos[:2], cls_emb)
+    equal = srv_open.run_vis([videos[0], videos[2]], cls_emb)
+    # the batched window encode of the equal pair, and each video's lone
+    # encode: cuDNN may round a video's frames differently in a batch of 60
+    # than alone, so the second video is also held to the driver fed with
+    # its half of the batched encode (the server's own logic, exactly)
+    pair_d = torch.as_tensor(np.stack([videos[0], videos[2]])).cuda()
+    mf_b, ms_b = srv_open.driver.encode_window(pair_d.reshape(-1, *pair_d.shape[2:]))
+    halves = [(mf_b[i * 30:(i + 1) * 30], tuple(m[i * 30:(i + 1) * 30] for m in ms_b))
+              for i in range(2)]
+    lone = [srv_open.driver.encode_window(pair_d[i]) for i in range(2)]
+    batch_err = [[float((h.float() - w.float()).abs().max())
+                  for h, w in zip((hb[0], *hb[1]), (lw[0], *lw[1]))]
+                 for hb, lw in zip(halves, lone)]
+    with torch.no_grad():  # the same for the backbone's stages alone
+        bb_pair = model.backbone(model.normalize(pair_d.reshape(-1, *pair_d.shape[2:])))
+        bb_lone = [model.backbone(model.normalize(pair_d[i])) for i in range(2)]
+    backbone_err = {k: [float((v[i * 30:(i + 1) * 30].float() - bb_lone[i][k].float()).abs().max())
+                        for i in range(2)] for k, v in bb_pair.items()}
+    del bb_pair, bb_lone
+    fed = EntityDriver(relaxed, model, num_classes=K, capacity=E)
+    fed.encode_window = lambda frames: halves[1]
+    want_fed = fed.run_vis(videos[2], cls_emb)
+    del pair_d, mf_b, ms_b, halves, lone
+    open_rec = {
+        "entities_unequal": [len(r) for r in unequal], "entities_equal": [len(r) for r in equal],
+        "entities_entity_driver": [len(r) for r in want_open],
+        "encode_batched_vs_lone_max_abs_err": batch_err,
+        "backbone_batched_vs_lone_max_abs_err": backbone_err,
+        "rles_identical_longer": same_rles(unequal[0], want_open[0]),
+        "rles_identical_equal": [same_rles(equal[0], want_open[0]),
+                                 same_rles(equal[1], want_fed)],
+        "rles_identical_second_to_lone_encode": same_rles(equal[1], want_open[2]),
+        "mask_iou_second_to_lone_encode": rle_iou(equal[1], want_open[2]),
+        "rles_identical_shorter_not_required": same_rles(unequal[1], want_open[1]),
+    }
+    open_ok = (open_rec["rles_identical_longer"] and all(open_rec["rles_identical_equal"])
+               and all(len(r) >= 1 for r in (*unequal, *equal))
+               and all(check_results(r, n, *FULL_HW, E, K)
+                       for r, n in zip((*unequal, *equal), (*SERVE_LENGTHS, 30, 30))))
+    open_rec["pass"] = bool(open_ok)
+    frames = sum(SERVE_LENGTHS)
+    emit({"path": "BatchedVISServer.run_vis", "config": "UniVS-R50 VIS, bf16",
+          "videos": len(pair), "lengths": list(SERVE_LENGTHS), "height": FULL_HW[0],
+          "width": FULL_HW[1], "batch_size": 2, "capacity": E, "classes": K, "T": srv.driver.T,
+          "stride": srv.driver.stride, "window": srv.driver.window, "window_encodes": n_enc,
+          "encode_frames_per_window": 2 * srv.driver.window, "warmup_s": warm_s, "run_s": run_s,
+          "videos_per_s": [len(pair) / t for t in run_s], "fps": [frames / t for t in run_s],
+          "entity_driver_s_both_videos": single_s, "entity_driver_fps": frames / single_s,
+          "entities": [len(r) for r in got],
+          "rles_identical_to_entity_driver": [same_rles(g, w) for g, w in zip(got, want)],
+          "gates_open": open_rec, "peak_mem_gb": peak, "launches": launches,
+          "launches_expected": expected, "launches_ok": counts_ok, "outputs_ok": out_ok})
+    del srv, single, srv_open, single_open
+    torch.cuda.empty_cache()
+    return bool(counts_ok and out_ok and open_ok), launches
+
+
+def run_pipeline_path(model):
+    """``EntityDriver(pipeline_devices=...)`` on (cuda:0, cuda:1) when two
+    cards are visible, else (cuda:0, cuda:0), on a seeded 45-frame video
+    (two windows, so the second window's encode is issued ahead): FPS of
+    the pipelined and the unpipelined driver; with the gates open, the
+    pipelined RLEs identical to the unpipelined ones, at least one
+    entity.  Returns (ok, launches of the pipelined run)."""
+    import torch
+
+    from univs_tpu_torch.config import UniVSConfig
+    from univs_tpu_torch.inference.driver import EntityDriver
+
+    cfg = UniVSConfig(dtype="bfloat16")
+    K, E = 40, cfg.inference.max_num_instances
+    V = PIPELINE_FRAMES
+    rng = np.random.RandomState(22)
+    video = (rng.rand(V, *FULL_HW, 3) * 255).astype(np.uint8)
+    cls_emb = torch.as_tensor(rng.randn(K, cfg.decoder.clip_cls_emb_dim).astype(np.float32))
+    devs = ("cuda:0", "cuda:1" if torch.cuda.device_count() > 1 else "cuda:0")
+    # a driver moves the module it is given to its decode device: on two
+    # cards the pipelined drivers take a copy, the shared model stays
+    pmodel = model if devs[1] == "cuda:0" else copy.deepcopy(model)
+    plain = EntityDriver(cfg, model, num_classes=K, capacity=E)
+    piped = EntityDriver(cfg, pmodel, num_classes=K, capacity=E, pipeline_devices=devs)
+    piped.run_vis(video, cls_emb)  # warm-up
+    t0 = time.perf_counter()
+    got, launches = counted(lambda: piped.run_vis(video, cls_emb))
+    piped_s = [time.perf_counter() - t0] + timed_runs(lambda: piped.run_vis(video, cls_emb), 1)
+    plain_s = timed_runs(lambda: plain.run_vis(video, cls_emb), 2)
+    n_enc = piped.num_window_encodes(V)
+    expected = expected_launches(n_enc, cfg.pixel_decoder.num_layers)
+    counts_ok = check_launches("pipeline_devices", launches, expected)
+    same = same_rles(got, plain.run_vis(video, cls_emb))
+    relaxed = with_gates_open(cfg)
+    want_open = EntityDriver(relaxed, model, num_classes=K, capacity=E).run_vis(video, cls_emb)
+    got_open = EntityDriver(relaxed, pmodel, num_classes=K, capacity=E,
+                            pipeline_devices=devs).run_vis(video, cls_emb)
+    same_open = same_rles(got_open, want_open) and len(got_open) >= 1
+    emit({"path": "EntityDriver.run_vis pipeline_devices", "devices": list(devs),
+          "frames": V, "window_encodes": n_enc, "entities": len(got), "rles_identical": same,
+          "gates_open": {"entities": len(got_open), "rles_identical": same_open},
+          "fps_pipelined": [V / t for t in piped_s], "fps_unpipelined": [V / t for t in plain_s],
+          "launches": launches, "launches_ok": counts_ok})
+    del piped, plain, pmodel
+    torch.cuda.empty_cache()
+    return bool(counts_ok and same and same_open), launches
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2311,6 +2847,23 @@ def main() -> int:
                 log(f"ptxas {n}: {line.strip()}")
     log(f"build: {len(logs)} kernel(s) in {time.perf_counter() - t0:.1f} s")
 
+    if argv == ["pipeline"]:
+        # the two-device pipelining phase alone, for a machine with two or
+        # more cards (the default run has one: the pipeline there is
+        # cuda:0 -> cuda:0)
+        from univs_tpu_torch.config import UniVSConfig
+        from univs_tpu_torch.models.univs import build_model
+
+        ok, _ = run_pipeline_path(build_model(UniVSConfig(dtype="bfloat16"), None, seed=0,
+                                              device="cuda"))
+        print(card, flush=True)
+        if not ok:
+            log("FAILED")
+            return 1
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     results: dict = {}
     ok = kernel_checks(results)
     ok &= probe_kernel_checks(results)
@@ -2330,8 +2883,16 @@ def main() -> int:
     path_ok, fast_paths = run_fast_paths(vis_driver.model)
     ok &= path_ok
     by_path.update(fast_paths)
+    for name, run in (("BatchedVISServer", run_serving_path),
+                      ("pipeline_devices", run_pipeline_path)):
+        path_ok, by_path[name] = run(vis_driver.model)
+        ok &= path_ok
     del vis_driver
     torch.cuda.empty_cache()
+    ok &= grad_checks()
+    path_ok, train_paths = run_train_path()
+    ok &= path_ok
+    by_path.update(train_paths)
     for name, run in (("run_vis swin_large", run_swin_path), ("run_vis pvt_v2_b2", run_pvt_path)):
         path_ok, by_path[name] = run()
         ok &= path_ok
@@ -2345,6 +2906,7 @@ def main() -> int:
     ok &= reference_check_vl_decoder()
     ok &= reference_check_fast_vis()
     ok &= reference_check_image()
+    ok &= reference_check_train()
 
     rows = []
     for name in kernels.KERNELS:
@@ -2380,4 +2942,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -20,6 +20,7 @@ from univs_tpu_torch.inference.driver import EntityDriver
 from univs_tpu_torch.inference.fast_vis import (FastVISDriver, FastVPSDriver, MDQEVISDriver,
                                                 SemanticExtractionDriver)
 from univs_tpu_torch.inference.image import ImageDriver
+from univs_tpu_torch.inference.serving import BatchedVISServer
 from univs_tpu_torch.models import univs as univs_models
 from univs_tpu_torch.ops import kernels
 
@@ -79,13 +80,26 @@ def test_entry_points_refuse_cpu_without_request(monkeypatch):
         univs_models.build_decoder(cfg, device="cuda")
 
 
+def test_train_draws_refuse_cpu_without_request(monkeypatch):
+    """The train step draws on its key's device: the key is made on the
+    card unless the caller asks for the CPU."""
+    from univs_tpu_torch.utils.draws import make_key
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_key(0)
+    key = make_key(0, device="cpu")
+    assert key.source.device.type == "cpu" and key.uniform((2,)).device.type == "cpu"
+
+
 @pytest.mark.parametrize("make", [
     lambda cfg, **kw: FastVISDriver(cfg, **kw),
     lambda cfg, **kw: MDQEVISDriver(cfg, **kw),
     lambda cfg, **kw: FastVPSDriver(cfg, **kw),
     lambda cfg, **kw: SemanticExtractionDriver(cfg, **kw),
     lambda cfg, **kw: ImageDriver(cfg, num_classes=2, **kw),
-], ids=["fast_vis", "mdqe", "fast_vps", "semantic_extraction", "image"])
+    lambda cfg, **kw: BatchedVISServer(cfg, num_classes=2, capacity=2, **kw),
+], ids=["fast_vis", "mdqe", "fast_vps", "semantic_extraction", "image", "batched_server"])
 def test_fast_and_image_drivers_refuse_cpu_without_request(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_test_config()

@@ -142,9 +142,9 @@ def _port_loop_events(monkeypatch, driver_cls, cfg, model, V):
     monkeypatch.setattr(mp, "evict_window", lambda pool, n: ev.append(("evict", n)))
     monkeypatch.setattr(mp, "shift_clip", lambda pool, s: ev.append(("shift",)))
     frames = torch.arange(V).reshape(V, 1, 1, 1)
-    d._clip_loop(frames, None,
-                 lambda feats, c: ev.append(("clip", c["offset"], tuple(c["clip_idx"].tolist()))),
-                 lambda start, n: ev.append(("emit", n)))
+    d._clip_loop(frames[None], [None],
+                 lambda b, feats, c: ev.append(("clip", c["offset"], tuple(c["clip_idx"].tolist()))),
+                 lambda b, start, n: ev.append(("emit", n)))
     return ev
 
 

@@ -15,13 +15,21 @@ queries, no cross-clip state.
 
 ``start_vis`` / ``finish_vis`` keep the JAX package's pipelined API; in
 this port they run in order on the current stream (overlapping the
-upload and the drain on side streams is listed in ROADMAP.md).  The
+upload and the drain on side streams is listed in ROADMAP.md).
+``EntityDriver(pipeline_devices=(encode, decode))`` splits a video over
+two devices as the JAX driver does (``driver.py:261-279,395-406``): the
+parameters sit on both, the window encode runs on the first, its
+features go to the second with ``non_blocking`` copies, and the next
+window's encode is dispatched as soon as the current one is, so the two
+devices overlap.  The
 pool is updated in place; every emitted window is a copy taken before
 ``evict_window`` / ``shift_clip`` mutate the pool.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 from typing import Dict, List, Optional, Sequence
 
@@ -94,14 +102,36 @@ class _StreamingDriver:
         self.window = inf.num_frames_window
         self.out_window = max(self.window - self.T, self.T)
         self._modules = (self.model.pixel_decoder, self.model.decoder)
+        self._enc_model = None  # the encode device's copy when pipelined
+        self.frames_device = self.device
+
+    def _pipeline(self, encode_device) -> None:
+        """Run the window encode on ``encode_device`` (a copy of the model
+        there, unless it is the decode device) and pipeline it one window
+        ahead of the clip steps."""
+        enc = resolve_device(encode_device)
+        self._enc_model = self.model if enc == self.device else copy.deepcopy(self.model).to(enc)
+        self.frames_device = enc
 
     @torch.no_grad()
     def encode_window(self, frames: torch.Tensor):
         """[n, H, W, 3] raw frames (uint8 or float) on the device ->
-        (mask_features [n, H/4, W/4, C], multi-scale tuple), per frame."""
-        x = self.model.normalize(frames)
-        feats = self.model.backbone(x)
-        mask_features, _, _, ms = self.model.pixel_decoder(feats)
+        (mask_features [n, H/4, W/4, C], multi-scale tuple), per frame,
+        on the decode device."""
+        if self._enc_model is None:
+            return self._encode(self.model, frames)
+        # the kernels launch on the current device's stream: make it the
+        # encode device's
+        guard = torch.cuda.device(frames.device) if frames.is_cuda else contextlib.nullcontext()
+        with guard:
+            mask_features, ms = self._encode(self._enc_model, frames)
+        move = lambda t: t.to(self.device, non_blocking=True)
+        return move(mask_features), tuple(move(m) for m in ms)
+
+    @staticmethod
+    def _encode(model, frames: torch.Tensor):
+        feats = model.backbone(model.normalize(frames))
+        mask_features, _, _, ms = model.pixel_decoder(feats)
         return mask_features, tuple(ms)
 
     def _iter_clips(self, V: int):
@@ -141,30 +171,49 @@ class _StreamingDriver:
             i += self.stride
 
     @torch.no_grad()
-    def _clip_loop(self, frames_d: torch.Tensor, pool: mp.EntityMemory, clip_step, on_emit) -> None:
-        """The clip loop over one video on the device: the window encode
-        when a clip needs one, ``clip_step(feats, clip)`` on ``pool``,
-        then per due emission ``on_emit(start, n_out)`` before
+    def _clip_loop(self, frames_d: torch.Tensor, pools: Sequence[mp.EntityMemory], clip_step,
+                   on_emit) -> None:
+        """The clip loop over B videos in lockstep on the device
+        (``frames_d`` [B, V, H, W, 3], one pool each; a single video is
+        B = 1): the window encode when a clip needs one, with the video
+        axis folded into the frame axis (one encode of B x window
+        frames), ``clip_step(b, feats, clip)`` on each video's pool, then
+        per due emission and video ``on_emit(b, start, n_out)`` before
         ``evict_window`` drops exactly n_out frames (the trailing T
         overlap frames stay and keep accumulating), and ``shift_clip``
         unless it is the last clip.  ``on_emit`` must copy what it keeps:
-        the pool is updated in place."""
-        V = frames_d.shape[0]
+        the pools are updated in place."""
+        B, V = frames_d.shape[:2]
+        plan = list(self._iter_clips(V))
+        starts = [c["new_window"] for c in plan if c["new_window"] is not None]
+        ahead = {}
+
+        def encode(i0):
+            idx = torch.as_tensor(np.minimum(np.arange(i0, i0 + self.window), V - 1),
+                                  device=frames_d.device)
+            n = int(idx.numel())
+            mf, ms = self.encode_window(frames_d[:, idx].reshape(B * n, *frames_d.shape[2:]))
+            return mf.reshape(B, n, *mf.shape[1:]), tuple(m.reshape(B, n, *m.shape[1:]) for m in ms)
+
         feats_window = None
-        for c in self._iter_clips(V):
+        for c in plan:
             if c["new_window"] is not None:
                 i0 = c["new_window"]
-                idx = torch.as_tensor(np.minimum(np.arange(i0, i0 + self.window), V - 1),
-                                      device=self.device)
-                feats_window = self.encode_window(frames_d[idx])
+                feats_window = ahead.pop(i0) if i0 in ahead else encode(i0)
+                k = starts.index(i0)
+                if self._enc_model is not None and k + 1 < len(starts):
+                    ahead[starts[k + 1]] = encode(starts[k + 1])
             mf_w, ms_w = feats_window
             rel = torch.as_tensor(c["rel"], device=self.device)
-            clip_step((mf_w[rel], tuple(m[rel] for m in ms_w)), c)
+            for b in range(B):
+                clip_step(b, (mf_w[b, rel], tuple(m[b, rel] for m in ms_w)), c)
             for start, n_out in c["emits"]:
-                on_emit(start, n_out)
-                mp.evict_window(pool, n_out)
+                for b, pool in enumerate(pools):
+                    on_emit(b, start, n_out)
+                    mp.evict_window(pool, n_out)
             if not c["is_last"]:
-                mp.shift_clip(pool, self.stride)
+                for pool in pools:
+                    mp.shift_clip(pool, self.stride)
 
     def num_window_encodes(self, V: int) -> int:
         return sum(c["new_window"] is not None for c in self._iter_clips(V))
@@ -190,11 +239,20 @@ class EntityDriver(_StreamingDriver):
         device: None -> the card (raises without one); "cpu" explicitly
         thing_class_ids: 1-based thing classes of a panoptic dataset,
             ``run_vps``'s default
+        pipeline_devices: optional (encode device, decode device): the
+            window encode on the first, the clip steps and the pool on
+            the second (``device`` is then the decode device); None runs
+            everything on ``device``
     """
 
     def __init__(self, cfg: UniVSConfig, params=None, num_classes: int = 1, capacity: int = 40,
-                 device=None, seed: int = 0, thing_class_ids: Optional[Sequence[int]] = None):
+                 device=None, seed: int = 0, thing_class_ids: Optional[Sequence[int]] = None,
+                 pipeline_devices=None):
+        if pipeline_devices is not None:
+            device = pipeline_devices[1]
         super().__init__(cfg, params, device, seed)
+        if pipeline_devices is not None:
+            self._pipeline(pipeline_devices[0])
         self.num_classes = num_classes
         self.capacity = capacity
         self.thing_class_ids = None if thing_class_ids is None else tuple(thing_class_ids)
@@ -240,7 +298,7 @@ class EntityDriver(_StreamingDriver):
         pool = self._new_pool(self.capacity, self.num_classes, H, W)
         # the caller's dtype is kept: uint8 frames move 4x fewer bytes and
         # are normalized on the device inside the window encode
-        frames_d = torch.as_tensor(frames).to(dev)
+        frames_d = torch.as_tensor(frames).to(self.frames_device)
         cls_emb = torch.as_tensor(cls_emb).to(device=dev, dtype=torch.float32)
         cc = self.cc
         if thing_mask is not None:
@@ -252,11 +310,11 @@ class EntityDriver(_StreamingDriver):
         emit_scores: List[torch.Tensor] = []
         emit_valids: List[torch.Tensor] = []
 
-        def clip_step(feats, c):
+        def clip_step(_, feats, c):
             entity_clip_step(self._modules, feats, pool, c["clip_idx"], c["offset"], c["i"] == 0,
                              cls_emb, cc, thing_mask)
 
-        def on_emit(start, n_out):
+        def on_emit(_, start, n_out):
             win, scores, valid = self._emit(pool, n_out, divide)
             emitted.append(win)
             emit_scores.append(scores)
@@ -264,11 +322,11 @@ class EntityDriver(_StreamingDriver):
                 emit_valids.append(valid)
             emit_starts.append(start)
 
-        self._clip_loop(frames_d, pool, clip_step, on_emit)
+        self._clip_loop(frames_d[None], [pool], clip_step, on_emit)
 
         next_dev = None
         if next_frames is not None:
-            next_dev = torch.as_tensor(next_frames).to(dev)
+            next_dev = torch.as_tensor(next_frames).to(self.frames_device)
         return {
             "V": V, "pool": pool, "emitted": emitted, "emit_starts": emit_starts,
             "emit_scores": emit_scores, "emit_valids": emit_valids,
@@ -353,14 +411,14 @@ class EntityDriver(_StreamingDriver):
         image_size = tuple(image_size or (H, W))
         out_size = tuple(out_size or image_size)
         dev = self.device
-        frames_d = torch.as_tensor(frames).to(dev)
+        frames_d = torch.as_tensor(frames).to(self.frames_device)
         cls_emb = torch.as_tensor(cls_emb).to(device=dev, dtype=torch.float32)
         decoder = self.model.decoder
         labels = np.zeros((V, *out_size), np.int32)
         for i in range(0, V, self.T):
             Tc = min(self.T, V - i)
             clip_idx = np.minimum(np.arange(i, i + self.T), V - 1)
-            mf, ms = self.encode_window(frames_d[torch.as_tensor(clip_idx, device=dev)])
+            mf, ms = self.encode_window(frames_d[torch.as_tensor(clip_idx, device=frames_d.device)])
             if Tc < self.T:  # the true short tail clip (reference semantics)
                 mf, ms = mf[:Tc], tuple(m[:Tc] for m in ms)
             fi = torch.as_tensor(clip_idx[:Tc], device=dev)[None]
@@ -433,8 +491,9 @@ class VOSDriver(_StreamingDriver):
         """The clip loop over one video; ``clip_step(feats, clip)`` runs
         one clip on ``pool``.  Returns [(start, fp16 window copy)]."""
         emitted = []
-        self._clip_loop(torch.as_tensor(frames).to(self.device), pool, clip_step,
-                        lambda start, n_out: emitted.append(
+        self._clip_loop(torch.as_tensor(frames).to(self.device)[None], [pool],
+                        lambda _, feats, c: clip_step(feats, c),
+                        lambda _, start, n_out: emitted.append(
                             (start, pool.mask_logits[:, :n_out].to(torch.float16))))
         return emitted
 

@@ -7,6 +7,8 @@ top-k candidates of the instance path, all 200 learnable queries of the
 pixel path), so the port runs the same algorithm on a host copy of the
 cost matrix: one device->host copy per clip; the assignment returns on
 the input's device.  An on-device version is listed in ROADMAP.md.
+``hungarian_batch`` solves a stack of problems (a training step's
+layers x videos) from one host copy.
 
 The arithmetic is float32, step for step as in the JAX version
 (potentials, slack, first-index argmin), so the assignment is the same,
@@ -79,3 +81,16 @@ def hungarian(cost: torch.Tensor, row_valid: Optional[torch.Tensor] = None) -> t
         return torch.full((cost.shape[0],), -1, dtype=torch.int64, device=cost.device)
     out = hungarian_numpy(cost.detach().to(torch.float32).cpu().numpy(), rv)
     return torch.as_tensor(out, device=cost.device)
+
+
+def hungarian_batch(costs: torch.Tensor, row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A stack of assignments from ONE device->host copy of the costs:
+    [..., N, M] (N <= M) -> col4row [..., N] int64 on ``costs``' device,
+    each problem solved as ``hungarian``."""
+    lead, (N, M) = costs.shape[:-2], costs.shape[-2:]
+    c = costs.detach().to(torch.float32).cpu().numpy().reshape(-1, N, M)
+    rv = (np.ones((c.shape[0], N), bool) if row_valid is None
+          else np.broadcast_to(row_valid.detach().cpu().numpy(), (*lead, N)).reshape(-1, N))
+    out = np.stack([hungarian_numpy(ci, vi) if vi.any() else np.full(N, -1, np.int64)
+                    for ci, vi in zip(c, rv)]) if c.shape[0] else np.zeros((0, N), np.int64)
+    return torch.as_tensor(out.reshape(*lead, N), device=costs.device)

@@ -17,6 +17,14 @@ task fuses each prompt query's masks with those of its most similar
 learnable query (l4p), on the full-resolution masks and on the next
 layer's attention mask alike.  Module names follow the flax tree so the
 weight bridge maps them one to one.
+
+Training (``train=True``, JAX ``decoder.py:325-350,428,558``): every
+supervised layer's outputs are returned (``aux_outputs``); the mask
+embeddings are shuffled over frames by a drawn permutation per head call
+(``shuffle_perms``, drawn by the caller at the JAX package's
+``make_rng("shuffle")`` addresses); grounding logits are divided by the
+width; no l4p fusion; the text prompts' head-averaged lang->vision
+attention weights come back as ``l2v_attn_weights``.
 """
 
 from __future__ import annotations
@@ -65,6 +73,13 @@ def build_self_attn_bias(num_learnable: int, num_prompt: int, t: int, mask_type:
     return torch.as_tensor(bias, device=device)[None, None]
 
 
+def draw_shuffle_perms(key, num_layers: int, t: int):
+    """The temporal query shuffle's permutations of one training forward,
+    one per head call, at the addresses of flax's
+    ``make_rng("shuffle")`` in the decoder (``decoder.py:326``)."""
+    return [key.static("decoder", k + 1).permutation(t) for k in range(num_layers + 1)]
+
+
 def _normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp(min=1e-12)
 
@@ -72,7 +87,8 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 class UniVSDecoder(nn.Module):
     def __init__(self, hidden_dim=256, num_queries=200, num_layers=9, num_heads=8, ffn_dim=2048,
                  pre_norm=False, mask_dim=256, num_feature_levels=3, text_emb_dim=640,
-                 self_attn_mask_type="sep", num_max_frames=128, l4p_fusion=True):
+                 self_attn_mask_type="sep", num_max_frames=128, l4p_fusion=True,
+                 temporal_query_shuffle=True):
         super().__init__()
         C = hidden_dim
         self.hidden_dim = C
@@ -81,6 +97,7 @@ class UniVSDecoder(nn.Module):
         self.num_feature_levels = num_feature_levels
         self.self_attn_mask_type = self_attn_mask_type
         self.l4p_fusion = l4p_fusion
+        self.temporal_query_shuffle = temporal_query_shuffle
         self.query_feat = nn.Parameter(torch.zeros(num_queries, C))
         self.query_embed = nn.Parameter(torch.zeros(num_queries, C))
         self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, C))
@@ -119,25 +136,30 @@ class UniVSDecoder(nn.Module):
         return feats.reshape(b, t, h, w, C), pos.to(x_finest.dtype)
 
     def _encode_text_prompts(self, text_prompts: TextPrompts, src_all: torch.Tensor, b: int,
-                             t: int):
+                             t: int, need_l2v_weights: bool = False):
         """Text embeddings [B, Qp, L, Dt] -> vision space, lang->vision
         cross-attention over every level's tokens of each frame
         (src_all [B*T, S, C]; decoder_univs.py:659-744).  Returns
         (queries [B, Qp, T, C] = the sentence token = query_pos, kv
-        [B, Qp, L, T, C], kv_valid [B, Qp, L, T])."""
+        [B, Qp, L, T, C], kv_valid [B, Qp, L, T], the head-averaged
+        attention weights [B*T, Qp*L, S] or None)."""
         B, Qp, L, _ = text_prompts.embs.shape
         dtype = self.query_feat.dtype
         proj = self.text2vis_projection(self.text_norm(text_prompts.embs.to(dtype)))
         C = proj.shape[-1]
         x = proj[:, None].expand(B, t, Qp, L, C).reshape(b * t, Qp * L, C)
-        x = self.lang2vision(x, src_all)
+        l2v_w = None
+        if need_l2v_weights:
+            x, l2v_w = self.lang2vision(x, src_all, return_weights=True)
+        else:
+            x = self.lang2vision(x, src_all)
         kv = x.reshape(b, t, Qp, L, C).permute(0, 2, 3, 1, 4)  # [B, Qp, L, T, C]
         queries = kv[:, :, 0]  # the sentence token leads each stack
         if text_prompts.word_valid is not None:
             kv_valid = text_prompts.word_valid[..., None].expand(B, Qp, L, t)
         else:
             kv_valid = text_prompts.valid[:, :, None, None].expand(B, Qp, L, t)
-        return queries, kv, kv_valid
+        return queries, kv, kv_valid, l2v_w
 
     def _proca(self, i, output, query_pos, kv, kv_pe, b, t):
         """Prompt cross-attention over each prompt's [self; L kv] set (no
@@ -177,16 +199,20 @@ class UniVSDecoder(nn.Module):
         return torch.cat([output[:, :Ql], new_p.reshape(b * t, Qp, C)], dim=1)
 
     def _prediction_heads(self, output, mask_features, mask_features_small, task, cls_emb,
-                          exp_sentence, b, t, need_outputs):
+                          exp_sentence, b, t, need_outputs, train=False, perm=None):
         """Per-layer heads + the next layer's boolean attention allow-mask
         [B*T, 1, Q, h*w] (decoder_univs.py:498-567).  Grounding scores
-        each query against the raw sentence embeddings (no normalisation
-        at inference) and applies the l4p fusion (decoder_univs.py:536-551)
-        to the full-resolution masks and to the allow-mask's logits."""
+        each query against the raw sentence embeddings (divided by the
+        width in training) and, at inference, applies the l4p fusion
+        (decoder_univs.py:536-551) to the full-resolution masks and to
+        the allow-mask's logits.  ``perm`` [T] (training) shuffles the
+        mask embeddings over frames."""
         Q = output.shape[1]
         Ql = self.num_queries
         dec = self.decoder_norm(output)
         membed = self.mask_embed(dec).reshape(b, t, Q, -1)
+        if perm is not None:
+            membed = membed[:, perm.to(membed.device)]
         logits = masks = embds_raw = None
         if need_outputs:
             cls_feats = self.vis2text_projection(dec)
@@ -196,13 +222,15 @@ class UniVSDecoder(nn.Module):
             else:
                 cf = cls_feats.reshape(b, t, Q, -1).mean(dim=1)
                 logits = cf @ exp_sentence.to(cf.dtype).transpose(1, 2)  # [B, Q, Qe]
+                if train:
+                    logits = logits / dec.shape[-1]
             H, W, Cm = mask_features.shape[2:]
             masks = membed @ mask_features.reshape(b, t, H * W, Cm).transpose(-1, -2)
             masks = masks.reshape(b, t, Q, H, W).transpose(1, 2)  # [B, Q, T, H, W]
             embds_raw = dec.reshape(b, t, Q, -1).transpose(1, 2)
 
         l4p_idx = None
-        if task == "grounding" and self.l4p_fusion and Q > Ql:
+        if not train and task == "grounding" and self.l4p_fusion and Q > Ql:
             norm = _normalize(dec)
             sim = (norm @ norm[:, Ql:].transpose(1, 2)).reshape(b, t, Q, -1).mean(dim=1)
             l4p_idx = torch.argmax(sim[:, :Ql], dim=1)  # [B, Qp], first maximum
@@ -225,11 +253,16 @@ class UniVSDecoder(nn.Module):
                 frame_indices: torch.Tensor, task: str = "detection",
                 visual_prompts: Optional[VisualPrompts] = None,
                 cls_emb: Optional[torch.Tensor] = None,
-                text_prompts: Optional[TextPrompts] = None) -> Dict:
+                text_prompts: Optional[TextPrompts] = None, train: bool = False,
+                shuffle_perms=None) -> Dict:
         """x_levels: 3 maps [B*T, H_l, W_l, C] coarse to fine; mask_features
         [B*T, H/4, W/4, Cm]; frame_indices [B, T]; task 'detection' |
         'sot' | 'grounding'; cls_emb [K, Dt] (the class bank, unless
-        grounding).  Returns 'pred_logits', 'pred_masks', 'pred_embds'."""
+        grounding).  Returns 'pred_logits', 'pred_masks', 'pred_embds',
+        'aux_outputs' (training: one dict per earlier supervised layer)
+        and in training with text prompts 'l2v_attn_weights'.
+        ``shuffle_perms``: training's num_layers + 1 frame permutations
+        (``draw_shuffle_perms``), one per head call."""
         assert len(x_levels) == self.num_feature_levels
         C = self.hidden_dim
         dtype = self.query_feat.dtype
@@ -252,8 +285,10 @@ class UniVSDecoder(nn.Module):
         query_pos = self.query_embed[None].expand(bt, Ql, C)
 
         prompts = None
+        aux_l2v = None
         if task in ("detection", "grounding") and text_prompts is not None:
-            q, kv, kv_valid = self._encode_text_prompts(text_prompts, torch.cat(srcs, dim=1), b, t)
+            q, kv, kv_valid, aux_l2v = self._encode_text_prompts(
+                text_prompts, torch.cat(srcs, dim=1), b, t, need_l2v_weights=train)
             if task == "grounding" and visual_prompts is not None:
                 # prev-clip visual kv AHEAD of the text tokens per expression
                 # (decoder_univs.py:736-748); no pe on the text path
@@ -296,11 +331,19 @@ class UniVSDecoder(nn.Module):
             for (h, w) in sizes
         ]
 
-        def heads(out_tokens, mfs, need):
-            return self._prediction_heads(out_tokens, mask_features, mfs, task, cls_emb,
-                                          exp_sentence, b, t, need)
+        shuffle = train and self.temporal_query_shuffle and t > 1
+        if shuffle and shuffle_perms is None:
+            raise ValueError("training with the temporal query shuffle needs shuffle_perms")
+        calls = iter(range(self.num_layers + 1))
 
-        logits, masks, embds_raw, attn_bias = heads(output, mf_small[0], False)
+        def heads(out_tokens, mfs, need):
+            k = next(calls)
+            return self._prediction_heads(out_tokens, mask_features, mfs, task, cls_emb,
+                                          exp_sentence, b, t, need, train,
+                                          shuffle_perms[k] if shuffle else None)
+
+        logits, masks, embds_raw, attn_bias = heads(output, mf_small[0], train)
+        all_preds = [(logits, masks, embds_raw)]
 
         self_bias = build_self_attn_bias(Ql, Qp, t, self.self_attn_mask_type, task,
                                          device=output.device)
@@ -328,10 +371,16 @@ class UniVSDecoder(nn.Module):
             output = getattr(self, f"ffn_{i}")(output)
             final = i == self.num_layers - 1
             logits, masks, embds_raw, attn_bias = heads(
-                output, mf_small[(i + 1) % self.num_feature_levels], final)
+                output, mf_small[(i + 1) % self.num_feature_levels], train or final)
+            all_preds.append((logits, masks, embds_raw))
 
-        out = {"pred_logits": logits, "pred_masks": masks, "pred_embds": embds_raw,
-               "aux_outputs": []}
+        def to_out(p):
+            return {"pred_logits": p[0], "pred_masks": p[1], "pred_embds": p[2]}
+
+        out = to_out(all_preds[-1])
+        out["aux_outputs"] = [to_out(p) for p in all_preds[:-1]] if train else []
+        if aux_l2v is not None:
+            out["l2v_attn_weights"] = aux_l2v
         if prompts is not None:
             out["prompt_valid"] = prompts.valid
         return out

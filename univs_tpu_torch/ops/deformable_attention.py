@@ -22,6 +22,15 @@ Pieces:
 - ``ms_deform_attn_tent`` and ``ms_deform_attn`` keep the JAX package's
   API (normalized sampling locations + attention weights, the ``impl``,
   ``int8_slab`` and ``level_impl`` options).  Forward only.
+
+``msda_sample`` is differentiable as the JAX package's tent op is
+(``_msda_tent_bwd``, ``univs_tpu/ops/deformable_attention.py:815-819``):
+the forward is kernel A, the backward recomputes the gather law
+``msda_sample_plain`` under autograd, one frame at a time on the card
+(its corner gathers are ~0.35 GB each for four full-width frames), and
+returns its vector-Jacobian product: the x / y lanes get gradient
+through the bilinear fractions only (``floor`` has none, corners out of
+bounds contribute 0), the weight lane the sampled values.
 """
 
 from __future__ import annotations
@@ -103,11 +112,45 @@ def msda_sample_cuda(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, in
     return out
 
 
+class _MsdaSample(torch.autograd.Function):
+    """Kernel A forward (the plain law on the CPU); the backward is the
+    vector-Jacobian product of ``msda_sample_plain``, recomputed."""
+
+    @staticmethod
+    def forward(ctx, value, loc, spatial_shapes):
+        ctx.save_for_backward(value, loc)
+        ctx.shapes = tuple(spatial_shapes)
+        if value.is_cuda:
+            return msda_sample_cuda(value, spatial_shapes, loc)
+        return msda_sample_plain(value, spatial_shapes, loc)
+
+    @staticmethod
+    def backward(ctx, g):
+        value, loc = ctx.saved_tensors
+        need_v, need_l = ctx.needs_input_grad[:2]
+        gv = torch.zeros_like(value) if need_v else None
+        gl = torch.zeros_like(loc) if need_l else None
+        step = 1 if value.is_cuda else value.shape[0]
+        for n in range(0, value.shape[0], step):
+            v = value[n:n + step].detach().requires_grad_(need_v)
+            lc = loc[n:n + step].detach().requires_grad_(need_l)
+            with torch.enable_grad():
+                out = msda_sample_plain(v, ctx.shapes, lc)
+            wrt = [t for t in (v, lc) if t.requires_grad]
+            if not wrt:
+                break
+            grads = iter(torch.autograd.grad(out, wrt, g[n:n + step]))
+            if need_v:
+                gv[n:n + step] = next(grads)
+            if need_l:
+                gl[n:n + step] = next(grads)
+        return gv, gl, None
+
+
 def msda_sample(value: torch.Tensor, spatial_shapes, loc: torch.Tensor) -> torch.Tensor:
-    """[N, Lq, M*D]: plain law on the CPU, kernel A on CUDA."""
-    if value.is_cuda:
-        return msda_sample_cuda(value, spatial_shapes, loc)
-    return msda_sample_plain(value, spatial_shapes, loc)
+    """[N, Lq, M*D]: plain law on the CPU, kernel A on CUDA;
+    differentiable in ``value`` and ``loc``."""
+    return _MsdaSample.apply(value, loc, spatial_shapes)
 
 
 def _tent(i: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,11 @@ activation in the layer dtype and accumulate in float32 (the TPU
 kernel's law, ``fused_mlp.py:27-43``).  Weights are in the JAX layout
 ``[in, out]``.  ``fused_ffn_ln`` dispatches on the device: the CPU takes
 ``fused_ffn_ln_plain``, a CUDA tensor launches kernel C
-(``csrc/fused_ffn_ln.cu``) or raises.  ``ffn_body`` is the one place that
+(``csrc/fused_ffn_ln.cu``) or raises.  The JAX package's kernel has no
+gradient (its training takes the unfused law); here ``fused_ffn_ln`` is
+differentiable: the forward is the kernel, the backward recomputes the
+unfused law ``fused_ffn_ln_plain`` (float32 LayerNorms, the products in
+the layer dtype) under autograd, each gradient in its input's dtype.  ``ffn_body`` is the one place that
 chooses kernel C's body; the launch refuses a body that does not fit.
 """
 
@@ -90,8 +94,30 @@ def fused_ffn_ln_cuda(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps: float 
     return out
 
 
+class _FusedFfnLn(torch.autograd.Function):
+    """Kernel C forward (the plain law on the CPU); the backward is the
+    vector-Jacobian product of ``fused_ffn_ln_plain``, recomputed."""
+
+    @staticmethod
+    def forward(ctx, src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps):
+        ctx.save_for_backward(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2)
+        ctx.eps = eps
+        if src.is_cuda:
+            return fused_ffn_ln_cuda(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps)
+        return fused_ffn_ln_plain(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:10])]
+        with torch.enable_grad():
+            out = fused_ffn_ln_plain(*inputs, ctx.eps)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, g) if wrt else ())
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,)
+
+
 def fused_ffn_ln(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps: float = 1e-5):
-    """Plain law on the CPU, kernel C on CUDA."""
-    if src.is_cuda:
-        return fused_ffn_ln_cuda(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps)
-    return fused_ffn_ln_plain(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps)
+    """Plain law on the CPU, kernel C on CUDA; differentiable in every
+    tensor input."""
+    return _FusedFfnLn.apply(src, attn_out, g1, c1, w1, b1, w2, b2, g2, c2, eps)

@@ -18,6 +18,11 @@ Weights are taken in the JAX layout ``[in, out]`` (a Dense kernel; the
 transpose of ``nn.Linear.weight``).  ``msda_rows`` dispatches on the
 query's device: a CPU tensor takes ``msda_rows_plain``, a CUDA tensor
 launches kernel B (``csrc/msda_rows.cu``) or raises.
+
+``msda_rows`` is differentiable as the JAX package's fused sampling is
+(``_msf_bwd``, ``univs_tpu/ops/msda_rows.py:259-264``): the forward is the
+kernel, the backward recomputes ``msda_rows_plain`` under autograd and
+returns its vector-Jacobian product, each gradient in its input's dtype.
 """
 
 from __future__ import annotations
@@ -91,8 +96,30 @@ def msda_rows_cuda(query, wo, bo, wa, ba, spatial_shapes, n_heads: int, n_points
     return loc
 
 
+class _MsdaRows(torch.autograd.Function):
+    """Kernel B forward (the plain law on the CPU); the backward is the
+    vector-Jacobian product of ``msda_rows_plain``, recomputed."""
+
+    @staticmethod
+    def forward(ctx, query, wo, bo, wa, ba, spatial_shapes, n_heads, n_points):
+        ctx.save_for_backward(query, wo, bo, wa, ba)
+        ctx.args = (tuple(spatial_shapes), n_heads, n_points)
+        if query.is_cuda:
+            return msda_rows_cuda(query, wo, bo, wa, ba, spatial_shapes, n_heads, n_points)
+        return msda_rows_plain(query, wo, bo, wa, ba, spatial_shapes, n_heads, n_points)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:5])]
+        with torch.enable_grad():
+            loc = msda_rows_plain(*inputs, *ctx.args)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(loc, wrt, g) if wrt else ())
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,) * 3
+
+
 def msda_rows(query, wo, bo, wa, ba, spatial_shapes, n_heads: int, n_points: int) -> torch.Tensor:
-    """``loc [N, Lq, M, L, P, 3]``: plain law on the CPU, kernel B on CUDA."""
-    if query.is_cuda:
-        return msda_rows_cuda(query, wo, bo, wa, ba, spatial_shapes, n_heads, n_points)
-    return msda_rows_plain(query, wo, bo, wa, ba, spatial_shapes, n_heads, n_points)
+    """``loc [N, Lq, M, L, P, 3]``: plain law on the CPU, kernel B on
+    CUDA; differentiable in every tensor input."""
+    return _MsdaRows.apply(query, wo, bo, wa, ba, spatial_shapes, n_heads, n_points)

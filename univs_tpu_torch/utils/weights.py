@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -112,6 +112,34 @@ def state_dict_from_flax(tree: Mapping) -> Dict[str, np.ndarray]:
 
     walk(tree, [])
     return out
+
+
+def flax_leaf_of(model: nn.Module, key: str) -> List[Tuple[Tuple[str, ...], int]]:
+    """The flax leaves (path, rank) that ``state_dict_from_flax`` maps onto
+    the state_dict ``key``: the bridge's leaf rules read backwards (a
+    Linear / Conv ``weight`` from ``kernel``, a norm's ``weight`` from
+    ``scale``, FrozenBN's four tensors from scale / bias / mean / var, the
+    pixel decoders' ``level_embed`` rows from ``level_embed_{i}``, any
+    other leaf from itself)."""
+    from univs_tpu_torch.models.backbones.resnet import FrozenBatchNorm
+
+    mod_path, name = key.rsplit(".", 1) if "." in key else ("", key)
+    mod = model.get_submodule(mod_path)
+    t = mod._parameters.get(name)
+    if t is None:
+        t = mod._buffers[name]
+    path = tuple(mod_path.split(".")) if mod_path else ()
+    if isinstance(mod, FrozenBatchNorm):
+        leaf = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                "running_var": "var"}[name]
+        return [(path + (leaf,), 1)]
+    if name == "weight" and isinstance(mod, (nn.Linear, nn.Conv2d)):
+        return [(path + ("kernel",), t.dim())]
+    if name == "weight" and isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+        return [(path + ("scale",), 1)]
+    if name == "level_embed" and mod_path.startswith("pixel_decoder"):
+        return [(path + (f"level_embed_{i}",), 1) for i in range(t.shape[0])]
+    return [(path + (name,), t.dim())]
 
 
 def load_state_dict_strict(model: nn.Module, state: Mapping) -> None:
