@@ -64,6 +64,23 @@ def test_no_forbidden_imports(path):
             assert n.split(".")[0] not in FORBIDDEN, f"{path} imports {n}"
 
 
+def test_chip_smoke_and_the_training_modules_stand_alone():
+    """``chip_smoke.py`` and the training modules (data parallelism, stage-3
+    long video) import nothing of the JAX package, JAX, flax or ``tools``,
+    at module level or inside a function."""
+    paths = (PKG.parent / "chip_smoke.py", PKG / "parallel" / "ddp.py",
+             PKG / "parallel" / "long_video.py", PKG / "parallel" / "train_state.py")
+    for path in paths:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(n.split(".")[0] in FORBIDDEN for n in names), (path.name, names)
+
+
 def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False

@@ -85,7 +85,8 @@ def test_batched_server_matches_entity_driver(setup, monkeypatch):
     emb = torch.as_tensor(cls_emb)
     calls = []
     encode = srv.driver.encode_window
-    monkeypatch.setattr(srv.driver, "encode_window", lambda f: calls.append(f.shape[0]) or encode(f))
+    monkeypatch.setattr(srv.driver, "encode_window",
+                        lambda f, *videos: calls.append(f.shape[0]) or encode(f, *videos))
     equal = srv.run_vis([videos[0], videos[2]], emb)
     V = videos[0].shape[0]
     assert calls == [2 * tcfg.inference.num_frames_window] * srv.num_window_encodes(V)

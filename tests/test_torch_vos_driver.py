@@ -137,8 +137,8 @@ def _port_loop_events(monkeypatch, driver_cls, cfg, model, V):
 
     d = driver_cls(cfg, model, device="cpu")
     ev = []
-    d.encode_window = lambda f: (ev.append(("encode", int(f[0, 0, 0, 0]))),
-                                 (torch.zeros(d.window, 1), ()))[1]
+    d.encode_window = lambda f, *videos: (ev.append(("encode", int(f[0, 0, 0, 0]))),
+                                          (torch.zeros(d.window, 1), ()))[1]
     monkeypatch.setattr(mp, "evict_window", lambda pool, n: ev.append(("evict", n)))
     monkeypatch.setattr(mp, "shift_clip", lambda pool, s: ev.append(("shift",)))
     frames = torch.arange(V).reshape(V, 1, 1, 1)

@@ -173,3 +173,17 @@ def torch_batch(a, task: str):
     elif task == "grounding":
         kw = dict(exp_embs=t(a["exp_embs"]), exp_valid=t(a["exp_valid"]))
     return TrainBatch(images=t(a["images"]), frame_indices=t(a["frame_indices"]).long(), targets=tg, **kw)
+
+
+def zero_gradient_in_law(name: str, cfg) -> bool:
+    """A parameter whose gradient is 0 in exact arithmetic: the bias of a
+    pixel-decoder input projection feeding a GroupNorm of one channel a
+    group (32 groups of a 32-wide tiny config), which the norm subtracts.
+    Its computed gradient is rounding noise, which Adam's normalisation
+    turns into a move of up to a good part of a step in each package
+    alike, in directions that need not agree; such a tensor is held by
+    the group-level change norms, not element-wise."""
+    import re
+
+    return (cfg.pixel_decoder.hidden_dim == 32
+            and re.fullmatch(r"pixel_decoder\.input_proj_\d+\.bias", name) is not None)

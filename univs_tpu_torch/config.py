@@ -28,8 +28,8 @@ class BackboneConfig:
     swin_depths: Tuple[int, ...] = (2, 2, 6, 2)
     swin_num_heads: Tuple[int, ...] = (3, 6, 12, 24)
     swin_window_size: int = 7
-    swin_drop_path_rate: float = 0.0
-    swin_use_checkpoint: bool = False
+    swin_drop_path_rate: float = 0.0  # read by no JAX module: JAX's Swin has no drop path
+    swin_use_checkpoint: bool = False  # checkpoint each Swin block in training
     out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
 
 
@@ -183,6 +183,12 @@ class TrainConfig:
     num_points: int = 12544
     oversample_ratio: float = 3.0
     importance_sample_ratio: float = 0.75
+    # no_object_weight, deep_supervision, amp_dtype, long_video_enable and
+    # num_frames_video are read by no module of the JAX package (only its
+    # config_io maps them): the JAX criterion always supervises every layer
+    # and has no no-object class, the compute dtype is ``UniVSConfig.dtype``,
+    # and stage 3 is ``parallel/long_video.long_video_loss``, called with the
+    # video's frames whatever these say.  Nothing in the port reads them either.
     no_object_weight: float = 0.1
     deep_supervision: bool = True
     # stage-3 long-video training
@@ -190,7 +196,8 @@ class TrainConfig:
     num_frames_video: int = 7
     # BoxVIS box-supervised training (projection loss) + EMA-teacher
     # pseudo masks (reference: video_criterion.py:242-306 +
-    # mask2former/modeling/criterion.py:403 score thresh)
+    # mask2former/modeling/criterion.py:403 score thresh); read by
+    # parallel/train_state.make_train_step
     boxvis_enabled: bool = False
     boxvis_ema_enabled: bool = False
     pseudo_score_thresh: float = 0.2

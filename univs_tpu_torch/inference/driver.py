@@ -114,23 +114,34 @@ class _StreamingDriver:
         self.frames_device = enc
 
     @torch.no_grad()
-    def encode_window(self, frames: torch.Tensor):
-        """[n, H, W, 3] raw frames (uint8 or float) on the device ->
-        (mask_features [n, H/4, W/4, C], multi-scale tuple), per frame,
-        on the decode device."""
+    def encode_window(self, frames: torch.Tensor, videos: int = 1):
+        """[n, H, W, 3] raw frames (uint8 or float) on the device, the
+        windows of ``videos`` videos one after another -> (mask_features
+        [n, H/4, W/4, C], multi-scale tuple), per frame, on the decode
+        device."""
         if self._enc_model is None:
-            return self._encode(self.model, frames)
+            return self._encode(self.model, frames, videos)
         # the kernels launch on the current device's stream: make it the
         # encode device's
         guard = torch.cuda.device(frames.device) if frames.is_cuda else contextlib.nullcontext()
         with guard:
-            mask_features, ms = self._encode(self._enc_model, frames)
+            mask_features, ms = self._encode(self._enc_model, frames, videos)
         move = lambda t: t.to(self.device, non_blocking=True)
         return move(mask_features), tuple(move(m) for m in ms)
 
     @staticmethod
-    def _encode(model, frames: torch.Tensor):
-        feats = model.backbone(model.normalize(frames))
+    def _encode(model, frames: torch.Tensor, videos: int = 1):
+        """The backbone once per video's window, so that a video's features
+        do not depend on the batch it is served in (cuDNN rounds a
+        convolution by the algorithm it picks for the batch size); the
+        pixel decoder once over every frame, so A, B and C run once per
+        encoder layer for the whole batch."""
+        x = model.normalize(frames)
+        if videos == 1:
+            feats = model.backbone(x)
+        else:
+            parts = [model.backbone(chunk) for chunk in x.chunk(videos)]
+            feats = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
         mask_features, _, _, ms = model.pixel_decoder(feats)
         return mask_features, tuple(ms)
 
@@ -177,7 +188,8 @@ class _StreamingDriver:
         (``frames_d`` [B, V, H, W, 3], one pool each; a single video is
         B = 1): the window encode when a clip needs one, with the video
         axis folded into the frame axis (one encode of B x window
-        frames), ``clip_step(b, feats, clip)`` on each video's pool, then
+        frames, the backbone once per video), ``clip_step(b, feats, clip)``
+        on each video's pool, then
         per due emission and video ``on_emit(b, start, n_out)`` before
         ``evict_window`` drops exactly n_out frames (the trailing T
         overlap frames stay and keep accumulating), and ``shift_clip``
@@ -192,7 +204,7 @@ class _StreamingDriver:
             idx = torch.as_tensor(np.minimum(np.arange(i0, i0 + self.window), V - 1),
                                   device=frames_d.device)
             n = int(idx.numel())
-            mf, ms = self.encode_window(frames_d[:, idx].reshape(B * n, *frames_d.shape[2:]))
+            mf, ms = self.encode_window(frames_d[:, idx].reshape(B * n, *frames_d.shape[2:]), B)
             return mf.reshape(B, n, *mf.shape[1:]), tuple(m.reshape(B, n, *m.shape[1:]) for m in ms)
 
         feats_window = None

@@ -2,8 +2,9 @@
 ``univs_tpu/inference/serving.py``).
 
 ``BatchedVISServer`` decodes B videos in lockstep.  The window encode
-folds the video axis into the frame axis: one backbone and pixel-decoder
-call over B x window frames, so kernels A, B and C run once per encoder
+runs the backbone once per video's window, so each video's features are
+those of a lone encode whatever the batch, and the pixel decoder once
+over the B x window frames, so kernels A, B and C run once per encoder
 layer for the whole batch.  The JAX package ``vmap``s the clip step, the
 pool shift and the emission over videos; the port's clip step is eager
 with host decisions, so it loops over the videos, each with its own

@@ -1,6 +1,6 @@
 """Unified training criterion, learnable and prompt queries (counterpart
-of ``univs_tpu/losses/criterion.py``; BoxVIS's projection loss and EMA
-teacher are not ported yet).
+of ``univs_tpu/losses/criterion.py``), BoxVIS's box-projection loss and
+its EMA teacher's pseudo masks included.
 
 The same laws over fixed-capacity targets: targets padded to N slots
 with a validity mask, every loss a masked reduction, the learnable
@@ -19,6 +19,12 @@ subsample) come from a ``DrawKey`` at the JAX package's key addresses
 and enter each law as arguments.  ``uncertainty_point_coords`` takes
 the most uncertain candidates by a stable descending sort where JAX
 takes ``lax.top_k`` (same order, ties by index).
+
+Every law takes a ``BatchShard`` (``parallel/ddp.py``): in one process
+it is the whole batch and changes nothing; under data parallelism every
+batch reduction of a count is global, the contrastive columns are every
+rank's rows, and the per-video and per-row draws are this rank's slice of
+the global batch's.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch.nn.functional as F
 
 from univs_tpu_torch.config import TrainConfig
 from univs_tpu_torch.losses.hungarian import hungarian_batch
+from univs_tpu_torch.parallel.ddp import BatchShard
 
 # Parity hooks, as the JAX package's: when set, replace the random point
 # generators.  _FIXED_MATCH_COORDS: [P, 2] matcher point set;
@@ -98,17 +105,25 @@ def draw_gumbel_pair(key, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return r1.gumbel((n,)), r2.gumbel((n,))
 
 
+def _identity(x):
+    return x
+
+
 def contrastive_loss(sim: torch.Tensor, pos: torch.Tensor, row_valid: torch.Tensor,
-                     col_valid: torch.Tensor, gumbel=None, topk: int = 20) -> torch.Tensor:
+                     col_valid: torch.Tensor, gumbel=None, topk: int = 20,
+                     count=_identity) -> torch.Tensor:
     """Masked reference contrastive loss (video_criterion.py:166-200):
     sim [R, K], pos [R, K] {0, 1} -> scalar.  With ``gumbel`` (two [K]
     noise vectors) the negatives are a random column subset as the
     reference's (:184-188): up to int(0.75 * cap) columns holding a
     positive and int(0.25 * cap) background columns, cap = min(topk,
-    3 * rows kept); without, the full negative set."""
+    3 * rows kept); without, the full negative set.  ``count`` makes a
+    count over the rows global (data parallelism: each rank holds some
+    rows, every column)."""
     f32 = torch.float32
     pos = pos * row_valid[:, None].to(f32) * col_valid[None, :].to(f32)
     keep = row_valid.to(f32) * (pos.sum(-1) > 0).to(f32)
+    n_keep = count(keep.sum())
     # the anchor is the FIRST positive column (video_criterion.py:178-179)
     first_pos = torch.argmax(pos, dim=-1)
     pos_first = torch.gather(sim, 1, first_pos[:, None])[:, 0]
@@ -116,10 +131,11 @@ def contrastive_loss(sim: torch.Tensor, pos: torch.Tensor, row_valid: torch.Tens
     pos_two = torch.stack([pos_first, pos_mean], dim=-1)  # [R, 2]
     col_sel = col_valid.to(f32)
     if gumbel is not None:
-        cap = min(topk, 3 * int(keep.sum()))
+        cap = min(topk, 3 * int(n_keep))
         n_act, n_bg = int(0.75 * cap), int(0.25 * cap)
-        col_act = (pos.sum(0) > 0) & col_valid
-        col_bg = (pos.sum(0) == 0) & col_valid
+        col_pos = count(pos.sum(0))
+        col_act = (col_pos > 0) & col_valid
+        col_bg = (col_pos == 0) & col_valid
 
         def pick(noise, mask, n):
             g = torch.where(mask, noise.to(sim.device), -1e9)
@@ -131,11 +147,11 @@ def contrastive_loss(sim: torch.Tensor, pos: torch.Tensor, row_valid: torch.Tens
     diff = sim[:, :, None] - pos_two[:, None, :]  # [R, K, 2]
     e = torch.exp(diff.clamp(max=10.0)) * is_neg[:, :, None]
     loss_row = torch.log1p(e.reshape(e.shape[0], -1).sum(-1))
-    return (loss_row * keep).sum() / keep.sum().clamp(min=1.0)
+    return (loss_row * keep).sum() / n_keep.clamp(min=1.0)
 
 
 def contrastive_aux_loss(sim: torch.Tensor, pos: torch.Tensor, row_valid: torch.Tensor,
-                         col_valid: torch.Tensor) -> torch.Tensor:
+                         col_valid: torch.Tensor, count=_identity) -> torch.Tensor:
     """Masked smooth-L1 on cosine similarities (video_criterion.py:202-223)."""
     f32 = torch.float32
     pos = pos * col_valid[None, :].to(f32)
@@ -143,7 +159,7 @@ def contrastive_aux_loss(sim: torch.Tensor, pos: torch.Tensor, row_valid: torch.
     d = (sim.clamp(min=0.0) - pos).abs()
     sl1 = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
     sl1 = sl1 * col_valid[None, :].to(f32) * keep[:, None].to(f32)
-    return sl1.sum() / keep.sum().clamp(min=1).to(f32)
+    return sl1.sum() / count(keep.sum()).clamp(min=1).to(f32)
 
 
 def point_sample_rows(maps: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -170,17 +186,24 @@ def draw_point_candidates(key, rows: int, cfg: TrainConfig) -> Tuple[torch.Tenso
     return r1.uniform((rows, n_sampled, 2)), r2.uniform((rows, k_rand, 2))
 
 
-def uncertainty_point_coords(mask_logits: torch.Tensor, cfg: TrainConfig, key) -> torch.Tensor:
+def uncertainty_point_coords(mask_logits: torch.Tensor, cfg: TrainConfig, key,
+                             sh: Optional[BatchShard] = None) -> torch.Tensor:
     """PointRend importance sampling (detectron2
     get_uncertain_point_coords_with_randomness): mask_logits [R, H, W] ->
     coords [R, P, 2], the int(importance * P) candidates of least |logit|
-    (stable descending sort of -|v|), then the random points.  No gradient."""
+    (stable descending sort of -|v|), then the random points.  No gradient.
+    With a shard, the rows (row-major over its videos) take their slice
+    of the global batch's draws."""
     R = mask_logits.shape[0]
     dev = mask_logits.device
     if _FIXED_LOSS_COORDS is not None:
         return torch.as_tensor(_FIXED_LOSS_COORDS(R, cfg.num_points), dtype=torch.float32,
                                device=dev)
-    cand, rand = (x.to(dev) for x in draw_point_candidates(key, R, cfg))
+    if sh is None or not sh.distributed:
+        draws = draw_point_candidates(key, R, cfg)
+    else:
+        draws = (sh.rows(x) for x in draw_point_candidates(key, sh.rows_total(R), cfg))
+    cand, rand = (x.to(dev) for x in draws)
     k_unc = int(cfg.importance_sample_ratio * cfg.num_points)
     with torch.no_grad():
         vals = point_sample_rows(mask_logits, cand)
@@ -189,9 +212,9 @@ def uncertainty_point_coords(mask_logits: torch.Tensor, cfg: TrainConfig, key) -
     return torch.cat([picked, rand], dim=1)
 
 
-def _sample_mask_points(key, src_masks, tgt_masks, cfg: TrainConfig):
+def _sample_mask_points(key, src_masks, tgt_masks, cfg: TrainConfig, sh: BatchShard):
     """src [R, H, W] / tgt [R, Hg, Wg] -> (logits [R, P], labels [R, P])."""
-    coords = uncertainty_point_coords(src_masks.detach(), cfg, key)
+    coords = uncertainty_point_coords(src_masks.detach(), cfg, key, sh)
     with torch.no_grad():
         labels = point_sample_rows(tgt_masks, coords)
     return point_sample_rows(src_masks, coords), labels
@@ -245,14 +268,19 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _layer_losses_learnable(key, pred_logits, pred_masks, pred_embds, targets: TrainTargets,
                             cls_valid, num_masks, cfg: TrainConfig, task: str,
-                            match: torch.Tensor, class_loss: bool = True) -> Dict[str, torch.Tensor]:
+                            match: torch.Tensor, class_loss: bool = True, boxvis: bool = False,
+                            pseudo=None, sh: Optional[BatchShard] = None) -> Dict[str, torch.Tensor]:
     """The learnable queries' losses given their match [B, N] (query per
     target): focal + CE on the matched class rows, BCE + dice at the
-    PointRend points, the ReID contrastive pair."""
+    PointRend points (BoxVIS: the box-projection loss, and with the
+    teacher's ``pseudo`` (masks [B, N, T, H, W], scores [B, N]) BCE +
+    dice on the confident pseudo masks, JAX ``criterion.py:330-357``),
+    the ReID contrastive pair."""
     B, Ql, K = pred_logits.shape
     T = pred_masks.shape[2]
     N = targets.labels.shape[1]
     f32 = torch.float32
+    sh = sh or BatchShard.whole(B)
     _, r_pts = key.split(2)
     mclip = match.clamp(min=0)
     valid_f = targets.valid.to(f32)
@@ -274,35 +302,57 @@ def _layer_losses_learnable(key, pred_logits, pred_masks, pred_embds, targets: T
                                            torch.full_like(matched, -1e9)), dim=-1)
         ce = logZ - torch.gather(matched, -1, lbl0[..., None])[..., 0]
         loss_ce_b = (ce * valid_f).sum(-1) / n_valid_b.clamp(min=1)
-        w = n_valid_b / n_valid_b.sum().clamp(min=1)
+        w = n_valid_b / sh.count(n_valid_b.sum()).clamp(min=1)
         losses["loss_ce"] = ((loss_focal_b + loss_ce_b) * w).sum()
 
     src = _take(pred_masks, mclip).reshape(B * N * T, *pred_masks.shape[-2:])
     tgt = targets.masks.reshape(B * N * T, *targets.masks.shape[-2:])
-    logits, labels_pt = _sample_mask_points(r_pts, src, tgt, cfg)
     row_valid = valid_f.reshape(-1).repeat_interleave(T)
-    losses["loss_mask"] = (sigmoid_ce_points(logits, labels_pt) * row_valid).sum() / num_masks
-    losses["loss_dice"] = (dice_loss_points(logits, labels_pt) * row_valid).sum() / num_masks
+    if boxvis:
+        # box-region targets: the projection loss (video_criterion.py:618-652);
+        # with the teacher, BCE + dice on the confident pseudo masks
+        # (mask2former criterion.py:526-570, gated at pseudo_score_thresh)
+        losses.update(loss_masks_box_supervised(src, tgt, row_valid, num_masks))
+        if pseudo is not None:
+            pm, ps = pseudo
+            gate = (ps > cfg.pseudo_score_thresh) & targets.valid
+            row_gate = gate.reshape(-1).repeat_interleave(T).to(f32)
+            n_hc = sh.count(gate.sum()).clamp(min=1).to(f32) * T
+            logits, labels_pt = _sample_mask_points(
+                r_pts, src, pm.reshape(B * N * T, *pm.shape[-2:]), cfg, sh)
+            losses["loss_mask"] = (sigmoid_ce_points(logits, labels_pt) * row_gate).sum() / n_hc
+            losses["loss_dice"] = (dice_loss_points(logits, labels_pt) * row_gate).sum() / n_hc
+    else:
+        logits, labels_pt = _sample_mask_points(r_pts, src, tgt, cfg, sh)
+        losses["loss_mask"] = (sigmoid_ce_points(logits, labels_pt) * row_valid).sum() / num_masks
+        losses["loss_dice"] = (dice_loss_points(logits, labels_pt) * row_valid).sum() / num_masks
 
     embds = _take(pred_embds, mclip).to(f32)  # [B, N, T, C]
     C = embds.shape[-1]
     flat = embds.reshape(B * N * T, C)
     ids = targets.ids.reshape(-1)
-    vids = torch.arange(B, device=flat.device).repeat_interleave(N * T)
+    vids = sh.offset + torch.arange(B, device=flat.device).repeat_interleave(N * T)
     keep = (ids >= 0) & targets.valid.reshape(-1).repeat_interleave(T)
-    sim = flat @ flat.T / math.sqrt(C)
-    pos = ((ids[:, None] == ids[None]) & (vids[:, None] == vids[None])).to(f32)
-    losses["loss_reid"] = contrastive_loss(sim, pos, keep, keep,
-                                           gumbel=draw_gumbel_pair(key.fold_in(101), sim.shape[1]))
-    nrm = flat / torch.linalg.norm(flat, dim=-1, keepdim=True).clamp(min=1e-12)
-    losses["loss_reid_aux"] = contrastive_aux_loss(nrm @ nrm.T, pos, keep, keep)
+    cols, ids_c, vids_c, keep_c = (sh.columns(x) for x in (flat, ids, vids, keep))
+    sim = flat @ cols.T / math.sqrt(C)
+    pos = ((ids[:, None] == ids_c[None]) & (vids[:, None] == vids_c[None])).to(f32)
+    losses["loss_reid"] = contrastive_loss(sim, pos, keep, keep_c,
+                                           gumbel=draw_gumbel_pair(key.fold_in(101), sim.shape[1]),
+                                           count=sh.count)
+    nrm = _unit(flat)
+    losses["loss_reid_aux"] = contrastive_aux_loss(nrm @ sh.columns(nrm).T, pos, keep, keep_c,
+                                                   count=sh.count)
     return losses
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp(min=1e-12)
 
 
 def _layer_losses_prompt(key, pred_logits, pred_masks, pred_embds, targets: TrainTargets,
                          cls_valid, num_masks, cfg: TrainConfig, task: str,
-                         class_loss: bool = True,
-                         text_detection: bool = False) -> Dict[str, torch.Tensor]:
+                         class_loss: bool = True, text_detection: bool = False,
+                         sh: Optional[BatchShard] = None) -> Dict[str, torch.Tensor]:
     """Fixed assignment: prompt slot i is bound to target
     prompt_obj_ids[i] (video_criterion_prompt.py); text detection binds
     the slots to the semantic targets."""
@@ -312,6 +362,7 @@ def _layer_losses_prompt(key, pred_logits, pred_masks, pred_embds, targets: Trai
     poi = targets.prompt_obj_ids.long()
     pvalid = poi >= 0
     pclip = poi.clamp(min=0)
+    sh = sh or BatchShard.whole(B)
     r_pts, _ = key.split(2)
     use_sem = text_detection and targets.sem_masks is not None
     tgt_labels_all = targets.sem_labels if use_sem else targets.labels
@@ -332,12 +383,12 @@ def _layer_losses_prompt(key, pred_logits, pred_masks, pred_embds, targets: Trai
                                            torch.full_like(logits32, -1e9)), dim=-1)
         ce = logZ - torch.gather(logits32, -1, lbl0[..., None])[..., 0]
         loss_ce_b = (ce * pvalid_f).sum(-1) / nb.clamp(min=1)
-        w = nb / nb.sum().clamp(min=1)
+        w = nb / sh.count(nb.sum()).clamp(min=1)
         losses["loss_ce"] = ((loss_focal_b + loss_ce_b) * w).sum()
 
     src = pred_masks.reshape(B * Qp * T, *pred_masks.shape[-2:])
     tgt = _take(tgt_masks_all, pclip).reshape(B * Qp * T, *tgt_masks_all.shape[-2:])
-    logits, labels_pt = _sample_mask_points(r_pts, src, tgt, cfg)
+    logits, labels_pt = _sample_mask_points(r_pts, src, tgt, cfg, sh)
     row_valid = pvalid_f.reshape(-1).repeat_interleave(T)
     losses["loss_mask"] = (sigmoid_ce_points(logits, labels_pt) * row_valid).sum() / num_masks
     losses["loss_dice"] = (dice_loss_points(logits, labels_pt) * row_valid).sum() / num_masks
@@ -345,25 +396,108 @@ def _layer_losses_prompt(key, pred_logits, pred_masks, pred_embds, targets: Trai
     C = pred_embds.shape[-1]
     flat = pred_embds.to(f32).reshape(B * Qp * T, C)
     ids = poi.reshape(-1).repeat_interleave(T)
-    vids = torch.arange(B, device=flat.device).repeat_interleave(Qp * T)
+    vids = sh.offset + torch.arange(B, device=flat.device).repeat_interleave(Qp * T)
     keep = ids >= 0
-    sim = flat @ flat.T / math.sqrt(C)
-    pos = ((ids[:, None] == ids[None]) & (vids[:, None] == vids[None])).to(f32)
-    losses["loss_reid"] = contrastive_loss(sim, pos, keep, keep,
-                                           gumbel=draw_gumbel_pair(key.fold_in(101), sim.shape[1]))
-    nrm = flat / torch.linalg.norm(flat, dim=-1, keepdim=True).clamp(min=1e-12)
-    losses["loss_reid_aux"] = contrastive_aux_loss(nrm @ nrm.T, pos, keep, keep)
+    cols, ids_c, vids_c, keep_c = (sh.columns(x) for x in (flat, ids, vids, keep))
+    sim = flat @ cols.T / math.sqrt(C)
+    pos = ((ids[:, None] == ids_c[None]) & (vids[:, None] == vids_c[None])).to(f32)
+    losses["loss_reid"] = contrastive_loss(sim, pos, keep, keep_c,
+                                           gumbel=draw_gumbel_pair(key.fold_in(101), sim.shape[1]),
+                                           count=sh.count)
+    nrm = _unit(flat)
+    losses["loss_reid_aux"] = contrastive_aux_loss(nrm @ sh.columns(nrm).T, pos, keep, keep_c,
+                                                   count=sh.count)
     return losses
 
 
+def _resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[R, Hg, Wg] -> [R, h, w] as ``jax.image.resize(..., "nearest")``:
+    source index floor((i + 0.5) * in / out) in float32 (half-pixel
+    centres), an axis of equal size untouched."""
+    def index(n_out, n_in):
+        o = (torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5) * n_in / n_out
+        return torch.floor(o).long()
+
+    if x.shape[-2] != h:
+        x = x[:, index(h, x.shape[-2])]
+    if x.shape[-1] != w:
+        x = x[:, :, index(w, x.shape[-1])]
+    return x
+
+
+def loss_masks_box_supervised(pred_masks: torch.Tensor, gt_boxes_masks: torch.Tensor,
+                              valid: torch.Tensor, num_masks) -> Dict[str, torch.Tensor]:
+    """BoxVIS projection loss (video_criterion.py:618-652): dice between
+    the x and y max-projections of each predicted mask [R, H, W] (logits,
+    sigmoid in their dtype) and of its box-region mask [R, Hg, Wg]
+    (nearest-resized to the prediction), summed over the valid rows [R]
+    / ``num_masks``."""
+    p = torch.sigmoid(pred_masks)
+    g = _resize_nearest(gt_boxes_masks.to(torch.float32), *p.shape[1:])
+
+    def proj_dice(a, b):  # [R, L] soft projections
+        num = 2 * (a * b).sum(-1)
+        den = (a * a).sum(-1) + (b * b).sum(-1)
+        return 1 - num / den.clamp(min=1e-6)
+
+    py = proj_dice(p.amax(dim=-1), g.amax(dim=-1))
+    px = proj_dice(p.amax(dim=-2), g.amax(dim=-2))
+    return {"loss_mask_proj": ((px + py) * valid).sum() / num_masks}
+
+
+def boxvis_teacher_pseudo_masks(key, teacher_logits: torch.Tensor, teacher_masks: torch.Tensor,
+                                targets: TrainTargets, cls_valid: torch.Tensor, cfg: TrainConfig,
+                                sh: Optional[BatchShard] = None):
+    """The EMA teacher's pseudo masks for box-supervised training
+    (``BoxVISTeacherSetPseudoMask``, video_criterion.py:242-306): the
+    teacher's learnable queries ([B, Ql, K] logits, [B, Ql, T, H, W]
+    masks) Hungarian-matched to the box targets (one ``split(key, B)``
+    key a video, one host copy of the costs); per target the pseudo mask
+    box x sigmoid(matched teacher mask) and its confidence teacher class
+    prob x 0.5 (px + py), the dice coefficients of the x / y
+    max-projections (flattened over the frames) of the teacher mask and
+    the box mask.  Returns (pseudo masks [B, N, T, H, W] in [0, 1],
+    scores [B, N]), without gradient."""
+    with torch.no_grad():
+        B, Ql, K = teacher_logits.shape
+        sh = sh or BatchShard.whole(B)
+        vkeys = sh.split(key)
+        costs = torch.stack([
+            match_cost(teacher_logits[b], teacher_masks[b], targets.labels[b], targets.masks[b],
+                       match_coords(vkeys[b], cfg.num_points, targets.masks.device), cfg)
+            for b in range(B)])
+        match = hungarian_batch(costs, targets.valid)  # [B, N]
+        mclip = match.clamp(min=0)
+        soft = torch.sigmoid(_take(teacher_masks.to(torch.float32), mclip))  # [B, N, T, H, W]
+        prob = torch.softmax(torch.where(cls_valid[None, None, :],
+                                         teacher_logits.to(torch.float32),
+                                         torch.full_like(teacher_logits, -1e9,
+                                                         dtype=torch.float32)), dim=-1)
+        lbl0 = (targets.labels.long() - 1).clamp(0, K - 1)
+        cls_score = torch.gather(_take(prob, mclip), -1, lbl0[..., None])[..., 0]  # [B, N]
+        box = targets.masks.to(torch.float32)
+        N = match.shape[1]
+
+        def proj_score(a, b):  # [B, N, L] soft projections, the dice COEFFICIENT
+            num = 2 * (a * b).sum(-1)
+            den = (a * a).sum(-1) + (b * b).sum(-1)
+            return num / den.clamp(min=1e-6)
+
+        py = proj_score(soft.amax(dim=-2).reshape(B, N, -1), box.amax(dim=-2).reshape(B, N, -1))
+        px = proj_score(soft.amax(dim=-1).reshape(B, N, -1), box.amax(dim=-1).reshape(B, N, -1))
+        scores = cls_score * 0.5 * (px + py) * targets.valid.to(torch.float32)
+        return box * soft, scores
+
+
 def loss_masks_sem(key, pred_masks_p: torch.Tensor, targets: TrainTargets,
-                   cfg: TrainConfig) -> torch.Tensor:
+                   cfg: TrainConfig, sh: Optional[BatchShard] = None) -> torch.Tensor:
     """Semantic cross-entropy over the prompt slots at sampled points
     (video_criterion_prompt.py:489-541): per pixel the slot owning it
     (argmax over slots, first on ties), background ignored; owner and
     foreground read at the points with NEAREST semantics (:524)."""
     B, Qp, T, H, W = pred_masks_p.shape
     f32 = torch.float32
+    sh = sh or BatchShard.whole(B)
     poi = targets.prompt_obj_ids.long()
     pvalid = poi >= 0
     gt_src = targets.sem_masks if targets.sem_masks is not None else targets.masks
@@ -371,7 +505,7 @@ def loss_masks_sem(key, pred_masks_p: torch.Tensor, targets: TrainTargets,
     owner = torch.argmax(gt, dim=1)  # [B, T, h, w]
     has_fg = gt.amax(dim=1) > 0
     src = pred_masks_p.transpose(1, 2).reshape(B * T, Qp, H, W)
-    coords = uncertainty_point_coords(src.detach().amax(dim=1), cfg, key)  # [BT, P, 2]
+    coords = uncertainty_point_coords(src.detach().amax(dim=1), cfg, key, sh)  # [BT, P, 2]
     logits_pt = point_sample_rows(src, coords)  # [BT, P, Qp]
     h, w = owner.shape[-2:]
     ix = torch.round(coords[..., 0] * w - 0.5).long().clamp(0, w - 1)
@@ -381,12 +515,12 @@ def loss_masks_sem(key, pred_masks_p: torch.Tensor, targets: TrainTargets,
     keep = has_fg.reshape(B * T, h, w)[bt, iy, ix].to(f32)
     logZ = torch.logsumexp(logits_pt, dim=-1)
     ce = logZ - torch.gather(logits_pt, -1, lab[..., None])[..., 0]
-    return (ce * keep).sum() / keep.sum().clamp(min=1.0)
+    return (ce * keep).sum() / sh.count(keep.sum()).clamp(min=1.0)
 
 
 def loss_l2v_attn_weights(key, l2v: torch.Tensor, level_sizes, tokens_per_prompt: int,
                           targets: TrainTargets, cfg: TrainConfig, t: int,
-                          num_masks) -> Dict[str, torch.Tensor]:
+                          num_masks, sh: Optional[BatchShard] = None) -> Dict[str, torch.Tensor]:
     """Lang->vision attention supervision (video_criterion_prompt.py:
     543-598): smooth-L1 + dice between the max-normalized sentence-token
     attention maps ([B*T, Qp*L, S], head-averaged) and the GT masks at
@@ -394,6 +528,7 @@ def loss_l2v_attn_weights(key, l2v: torch.Tensor, level_sizes, tokens_per_prompt
     f32 = torch.float32
     BT = l2v.shape[0]
     B = BT // t
+    sh = sh or BatchShard.whole(B)
     Qp = l2v.shape[1] // tokens_per_prompt
     w = l2v.to(f32).reshape(BT, Qp, tokens_per_prompt, -1)[:, :, 0]  # [BT, Qp, S]
     w = w / w.amax(-1, keepdim=True).clamp(min=1e-6)
@@ -407,20 +542,22 @@ def loss_l2v_attn_weights(key, l2v: torch.Tensor, level_sizes, tokens_per_prompt
         start += h * wd
         src = maps.reshape(B * Qp * t, h, wd)
         tgt = gt.reshape(B * Qp * t, *gt.shape[-2:])
-        coords = uncertainty_point_coords((0.9 - src).detach(), cfg, key.fold_in(li))
+        coords = uncertainty_point_coords((0.9 - src).detach(), cfg, key.fold_in(li), sh)
         probs = point_sample_rows(src, coords)
         with torch.no_grad():
             labels = point_sample_rows(tgt, coords)
         d = (probs - labels).abs()
         sl1 = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
-        sl1 = (sl1 * valid[:, None]).sum() / (labels * valid[:, None]).sum().clamp(min=1.0)
+        n_fg = sh.count((labels * valid[:, None]).sum())
+        sl1 = (sl1 * valid[:, None]).sum() / n_fg.clamp(min=1.0)
         dice = (dice_loss_points(probs, labels, already_prob=True) * valid).sum() / num_masks
         out[f"loss_l2v_attn_weight_{li}"] = 0.5 * (sl1 + dice)
     return out
 
 
 def _loss_reid_l2p(key, pred_embds_l, match, pred_embds_p, targets: TrainTargets,
-                   text_detection: bool = False) -> Dict[str, torch.Tensor]:
+                   text_detection: bool = False,
+                   sh: Optional[BatchShard] = None) -> Dict[str, torch.Tensor]:
     """Learnable <-> prompt alignment (video_criterion.py:480-568).  Text
     detection: positives share the CLASS label, no aux loss; sot and
     grounding: positives share the per-frame TRACK id, absent frames
@@ -429,13 +566,14 @@ def _loss_reid_l2p(key, pred_embds_l, match, pred_embds_p, targets: TrainTargets
     B, N = match.shape
     T = pred_embds_l.shape[2]
     C = pred_embds_l.shape[-1]
+    sh = sh or BatchShard.whole(B)
     mclip = match.clamp(min=0)
     src = _take(pred_embds_l, mclip).to(f32).reshape(B * N * T, C)
-    vids_l = torch.arange(B, device=src.device).repeat_interleave(N * T)
+    vids_l = sh.offset + torch.arange(B, device=src.device).repeat_interleave(N * T)
     Qp = pred_embds_p.shape[1]
     poi = targets.prompt_obj_ids.long()
     prm = pred_embds_p.to(f32).reshape(B * Qp * T, C)
-    vids_p = torch.arange(B, device=src.device).repeat_interleave(Qp * T)
+    vids_p = sh.offset + torch.arange(B, device=src.device).repeat_interleave(Qp * T)
     matched_valid = (targets.valid & (match >= 0)).reshape(-1).repeat_interleave(T)
     if text_detection:
         ids_l = targets.labels.reshape(-1).repeat_interleave(T)
@@ -449,17 +587,18 @@ def _loss_reid_l2p(key, pred_embds_l, match, pred_embds_p, targets: TrainTargets
         ids_p3 = _take(targets.ids, poi.clamp(min=0))  # [B, Qp, T]
         ids_p = torch.where((poi >= 0)[..., None], ids_p3, torch.full_like(ids_p3, -1)).reshape(-1)
         keep_p = ids_p >= 0
-    sim = src @ prm.T / math.sqrt(C)
-    pos = ((ids_l[:, None] == ids_p[None]) & (vids_l[:, None] == vids_p[None])).to(f32)
-    out = {"loss_reid_l2p": contrastive_loss(sim, pos, keep_l, keep_p,
+    cols, ids_c, vids_c, keep_c = (sh.columns(x) for x in (prm, ids_p, vids_p, keep_p))
+    sim = src @ cols.T / math.sqrt(C)
+    pos = ((ids_l[:, None] == ids_c[None]) & (vids_l[:, None] == vids_c[None])).to(f32)
+    out = {"loss_reid_l2p": contrastive_loss(sim, pos, keep_l, keep_c,
                                              gumbel=draw_gumbel_pair(key.fold_in(103),
-                                                                     sim.shape[1]))}
+                                                                     sim.shape[1]),
+                                             count=sh.count)}
     if text_detection:
         out["loss_reid_l2p_aux"] = torch.zeros((), dtype=f32, device=src.device)
     else:
-        nl = src / torch.linalg.norm(src, dim=-1, keepdim=True).clamp(min=1e-12)
-        np_ = prm / torch.linalg.norm(prm, dim=-1, keepdim=True).clamp(min=1e-12)
-        out["loss_reid_l2p_aux"] = contrastive_aux_loss(nl @ np_.T, pos, keep_l, keep_p)
+        out["loss_reid_l2p_aux"] = contrastive_aux_loss(_unit(src) @ sh.columns(_unit(prm)).T,
+                                                        pos, keep_l, keep_c, count=sh.count)
     return out
 
 
@@ -493,16 +632,18 @@ class UniCriterion:
             return c.reid_weight
         return 1.0
 
-    def match(self, key, layers: List[Dict], targets: TrainTargets) -> torch.Tensor:
+    def match(self, key, layers: List[Dict], targets: TrainTargets,
+              sh: Optional[BatchShard] = None) -> torch.Tensor:
         """Every layer's and video's Hungarian match [L, B, N] from one host
         copy of the costs (the draws of each layer's ``r_match``)."""
         Ql = self.num_learnable
         B = targets.labels.shape[0]
+        sh = sh or BatchShard.whole(B)
         costs = []
         for li, layer in enumerate(layers):
             r_l, _ = key.fold_in(li).split(2)
             r_match, _ = r_l.split(2)
-            vkeys = r_match.split(B)
+            vkeys = sh.split(r_match)
             costs.append(torch.stack([
                 match_cost(layer["pred_logits"][b, :Ql], layer["pred_masks"][b, :Ql],
                            targets.labels[b], targets.masks[b],
@@ -514,22 +655,31 @@ class UniCriterion:
     def __call__(self, key, outputs: Dict, targets: TrainTargets, cls_valid: torch.Tensor,
                  task: str = "detection", learnable_enabled: bool = True,
                  class_loss: bool = True, sem_loss: bool = False, level_sizes=None,
-                 tokens_per_prompt: int = 1,
-                 prompt_type: str = "text") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 tokens_per_prompt: int = 1, boxvis: bool = False, pseudo=None,
+                 prompt_type: str = "text", reid_stash: Optional[list] = None,
+                 shard: Optional[BatchShard] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``boxvis``: the box-supervised mask losses, with the EMA
+        teacher's ``pseudo`` (masks, scores) when given.  ``reid_stash``:
+        a list the caller owns; one (matched embeddings [B, N, T, C],
+        their per-frame ids [B, N, T], -1 for invalid targets) is
+        appended per decoder layer, the stage-3 inter-clip stash
+        (video_criterion.py:473-477).  ``shard``: this process's videos
+        of the global batch (data parallelism); None, the whole batch."""
         Ql = self.num_learnable
         T = self.num_frames
         f32 = torch.float32
-        num_masks = targets.valid.sum().clamp(min=1).to(f32) * T
-        has_prompt = outputs["pred_masks"].shape[1] > Ql
         B = targets.labels.shape[0]
+        sh = shard or BatchShard.whole(B)
+        num_masks = sh.count(targets.valid.sum()).clamp(min=1).to(f32) * T
+        has_prompt = outputs["pred_masks"].shape[1] > Ql
         Qp = outputs["pred_masks"].shape[1] - Ql
-        # the prompt normalizer counts every prompt slot
+        # the prompt normalizer counts every prompt slot of the global batch
         # (video_criterion_prompt.py:617-624)
-        num_masks_p = torch.tensor(float(max(B * Qp, 1) * T), dtype=f32,
+        num_masks_p = torch.tensor(float(max(sh.total * Qp, 1) * T), dtype=f32,
                                    device=targets.masks.device)
         text_detection = task == "detection" and prompt_type == "text"
         layers = outputs["aux_outputs"] + [outputs]
-        matches = self.match(key, layers, targets) if learnable_enabled else None
+        matches = self.match(key, layers, targets, sh) if learnable_enabled else None
         self.last_matches = matches
         total = torch.zeros((), dtype=f32, device=targets.masks.device)
         logged: Dict[str, torch.Tensor] = {}
@@ -542,21 +692,26 @@ class UniCriterion:
                 merged.update(_layer_losses_learnable(
                     r_l, layer["pred_logits"][:, :Ql], layer["pred_masks"][:, :Ql],
                     layer["pred_embds"][:, :Ql], targets, cls_valid, num_masks, self.cfg, task,
-                    matches[li], class_loss))
+                    matches[li], class_loss, boxvis=boxvis, pseudo=pseudo, sh=sh))
+                if reid_stash is not None:
+                    ids = torch.where(targets.valid[:, :, None], targets.ids,
+                                      torch.full_like(targets.ids, -1))
+                    reid_stash.append((_take(layer["pred_embds"][:, :Ql], matches[li]), ids))
             if has_prompt:
                 lp = _layer_losses_prompt(
                     r_p, layer["pred_logits"][:, Ql:], layer["pred_masks"][:, Ql:],
                     layer["pred_embds"][:, Ql:], targets, cls_valid, num_masks_p, self.cfg, task,
-                    class_loss, text_detection=text_detection)
+                    class_loss, text_detection=text_detection, sh=sh)
                 if sem_loss and text_detection:
                     lp["loss_mask"] = lp["loss_mask"] + loss_masks_sem(
-                        r.fold_in(777), layer["pred_masks"][:, Ql:], targets, self.cfg)
+                        r.fold_in(777), layer["pred_masks"][:, Ql:], targets, self.cfg, sh)
                 for k, v in lp.items():
                     merged[k] = 0.5 * (merged[k] + v) if k in merged else v
                 if matches is not None:
                     merged.update(_loss_reid_l2p(
                         r.fold_in(555), layer["pred_embds"][:, :Ql], matches[li],
-                        layer["pred_embds"][:, Ql:], targets, text_detection=text_detection))
+                        layer["pred_embds"][:, Ql:], targets, text_detection=text_detection,
+                        sh=sh))
             for k, v in merged.items():
                 logged[k + suffix] = v
                 total = total + self.weight(k) * v
@@ -564,7 +719,7 @@ class UniCriterion:
                 and task == "grounding"):
             l2v = loss_l2v_attn_weights(key.fold_in(999), outputs["l2v_attn_weights"],
                                         level_sizes, tokens_per_prompt, targets, self.cfg, T,
-                                        num_masks_p)
+                                        num_masks_p, sh)
             for k, v in l2v.items():
                 logged[k] = v
                 total = total + self.cfg.mask_weight * v

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from univs_tpu_torch.models.backbones.resnet import pad_same
 from univs_tpu_torch.models.transformer_layers import LayerNorm32
@@ -156,8 +157,10 @@ class SwinTransformer(nn.Module):
 
     def __init__(self, embed_dim: int = 96, depths: Tuple[int, ...] = (2, 2, 6, 2),
                  num_heads: Tuple[int, ...] = (3, 6, 12, 24), window: int = 7,
-                 out_features: Sequence[str] = ("res2", "res3", "res4", "res5")):
+                 out_features: Sequence[str] = ("res2", "res3", "res4", "res5"),
+                 use_checkpoint: bool = False):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         self.depths = tuple(depths)
         self.out_features = tuple(out_features)
         self.out_channels = {f"res{s + 2}": embed_dim * 2 ** s for s in range(len(depths))}
@@ -180,9 +183,14 @@ class SwinTransformer(nn.Module):
         x = x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         x = self.patch_norm(self.patch_embed(pad_same(x, 4, 4)).permute(0, 2, 3, 1))
         outs = {}
+        # activation checkpointing (JAX: nn.remat(SwinBlock)): a block's
+        # activations are recomputed in the backward; a block draws nothing
+        # (no dropout, no drop path), so the recompute is the forward exactly
+        remat = self.use_checkpoint and torch.is_grad_enabled()
         for s, depth in enumerate(self.depths):
             for b in range(depth):
-                x = getattr(self, f"stage{s}_block{b}")(x)
+                block = getattr(self, f"stage{s}_block{b}")
+                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             name = f"res{s + 2}"
             if name in self.out_features:
                 outs[name] = getattr(self, f"out_norm{s}")(x)
@@ -197,11 +205,13 @@ class SwinTransformer(nn.Module):
 
 
 def build_swin(cfg) -> SwinTransformer:
-    """From a BackboneConfig: ``VARIANTS[cfg.name]`` and
-    ``cfg.swin_window_size``.  ``swin_use_checkpoint`` and
-    ``swin_drop_path_rate`` are training knobs (not ported)."""
+    """From a BackboneConfig: ``VARIANTS[cfg.name]``,
+    ``cfg.swin_window_size`` and ``cfg.swin_use_checkpoint``
+    (``swin_drop_path_rate`` is read by no JAX module: JAX's Swin has no
+    drop path)."""
     if cfg.name not in VARIANTS:
         raise ValueError(f"unknown backbone {cfg.name!r}")
     v = VARIANTS[cfg.name]
     return SwinTransformer(embed_dim=v["embed_dim"], depths=v["depths"], num_heads=v["num_heads"],
-                           window=cfg.swin_window_size, out_features=cfg.out_features)
+                           window=cfg.swin_window_size, out_features=cfg.out_features,
+                           use_checkpoint=cfg.swin_use_checkpoint)

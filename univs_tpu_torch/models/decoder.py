@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from univs_tpu_torch.models.transformer_layers import (
     MLP,
@@ -88,8 +89,9 @@ class UniVSDecoder(nn.Module):
     def __init__(self, hidden_dim=256, num_queries=200, num_layers=9, num_heads=8, ffn_dim=2048,
                  pre_norm=False, mask_dim=256, num_feature_levels=3, text_emb_dim=640,
                  self_attn_mask_type="sep", num_max_frames=128, l4p_fusion=True,
-                 temporal_query_shuffle=True):
+                 temporal_query_shuffle=True, remat_heads=False):
         super().__init__()
+        self.remat_heads = remat_heads
         C = hidden_dim
         self.hidden_dim = C
         self.num_queries = num_queries
@@ -336,11 +338,19 @@ class UniVSDecoder(nn.Module):
             raise ValueError("training with the temporal query shuffle needs shuffle_perms")
         calls = iter(range(self.num_layers + 1))
 
+        # activation checkpointing of the heads in training (JAX
+        # ``remat_heads``: nn.remat of _prediction_heads): the full-resolution
+        # mask logits are recomputed in the backward.  The heads draw nothing
+        # (the shuffle permutation comes in drawn), so the recompute is exact
+        remat = self.remat_heads and train and torch.is_grad_enabled()
+
         def heads(out_tokens, mfs, need):
             k = next(calls)
-            return self._prediction_heads(out_tokens, mask_features, mfs, task, cls_emb,
-                                          exp_sentence, b, t, need, train,
-                                          shuffle_perms[k] if shuffle else None)
+            args = (out_tokens, mask_features, mfs, task, cls_emb, exp_sentence, b, t, need, train,
+                    shuffle_perms[k] if shuffle else None)
+            if remat:
+                return checkpoint(self._prediction_heads, *args, use_reentrant=False)
+            return self._prediction_heads(*args)
 
         logits, masks, embds_raw, attn_bias = heads(output, mf_small[0], train)
         all_preds = [(logits, masks, embds_raw)]

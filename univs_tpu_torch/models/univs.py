@@ -74,7 +74,7 @@ def _decoder(cfg: UniVSConfig) -> UniVSDecoder:
         num_heads=c.num_heads, ffn_dim=c.ffn_dim, pre_norm=c.pre_norm, mask_dim=c.mask_dim,
         text_emb_dim=c.clip_cls_emb_dim, self_attn_mask_type=c.self_attn_mask_type,
         num_max_frames=c.num_max_frames, l4p_fusion=c.l4p_fusion,
-        temporal_query_shuffle=c.temporal_query_shuffle,
+        temporal_query_shuffle=c.temporal_query_shuffle, remat_heads=c.remat_heads,
     )
 
 
@@ -109,6 +109,14 @@ class UniVSModel(nn.Module):
         std = torch.tensor(self.cfg.pixel_std, dtype=torch.float32, device=images.device)
         return ((images.to(torch.float32) - mean) / std).to(compute_dtype_of(self.cfg))
 
+    def encode_features(self, images: torch.Tensor):
+        """images [B, T, H, W, 3] raw -> (mask_features [B*T, H/4, W/4, Cm],
+        the multi-scale maps, coarse to fine)."""
+        b, t, h, w, _ = images.shape
+        feats = self.backbone(self.normalize(images).reshape(b * t, h, w, 3))
+        mask_features, _, _, ms = self.pixel_decoder(feats)
+        return mask_features, ms
+
     def forward(self, images: torch.Tensor, frame_indices: torch.Tensor, task: str = "detection",
                 text_prompts: Optional[TextPrompts] = None,
                 visual_prompts: Optional[VisualPrompts] = None,
@@ -116,20 +124,21 @@ class UniVSModel(nn.Module):
                 gt_masks: Optional[torch.Tensor] = None, gt_boxes: Optional[torch.Tensor] = None,
                 gt_occur: Optional[torch.Tensor] = None,
                 gt_obj_valid: Optional[torch.Tensor] = None, train: bool = False,
-                shuffle_key=None, prompt_key=None) -> Dict:
+                shuffle_key=None, prompt_key=None, shard=None) -> Dict:
         """images [B, T, H, W, 3] raw RGB, frame_indices [B, T] -> the
         decoder's outputs.  Training sot (``gt_masks`` [B, Qp, T, Hm, Wm],
         ``gt_boxes`` [B, Qp, T, 4] normalized, ``gt_occur`` [B, Qp, T],
         ``gt_obj_valid`` [B, Qp]) samples the visual prompts from the
-        ground truth with the draws of ``prompt_key``; training draws the
-        decoder's shuffle permutations from ``shuffle_key``."""
-        b, t, h, w, _ = images.shape
-        feats = self.backbone(self.normalize(images).reshape(b * t, h, w, 3))
-        mask_features, _, _, ms = self.pixel_decoder(feats)
+        ground truth with the draws of ``prompt_key`` (with a ``shard``,
+        this process's videos' draws of the global batch); training draws
+        the decoder's shuffle permutations from ``shuffle_key``."""
+        b, t = images.shape[:2]
+        mask_features, ms = self.encode_features(images)
         if train and task == "sot" and visual_prompts is None and gt_masks is not None:
             grid_feats, grid_pos = self.decoder.prompt_feature_grid(ms[-1], frame_indices)
             draws, coin = draw_train_prompts(prompt_key, b, t, gt_masks.shape[1],
-                                             grid_feats.shape[2] * grid_feats.shape[3])
+                                             grid_feats.shape[2] * grid_feats.shape[3],
+                                             shard)
             visual_prompts = train_visual_prompts(
                 grid_feats, grid_pos, gt_masks, gt_boxes, gt_occur, gt_obj_valid,
                 self.cfg.prompt.num_dense_points_train, draws, coin)
@@ -141,13 +150,16 @@ class UniVSModel(nn.Module):
                             text_prompts=text_prompts, train=train, shuffle_perms=perms)
 
 
-def draw_train_prompts(key, b: int, t: int, Qp: int, HW: int) -> Tuple[List[TrainPromptDraw], float]:
+def draw_train_prompts(key, b: int, t: int, Qp: int, HW: int,
+                       shard=None) -> Tuple[List[TrainPromptDraw], float]:
     """Training sot's draws: one ``TrainPromptDraw`` per video and the PE
     coin, at the addresses of ``univs.py:107-119`` (flax's
-    ``make_rng("prompt")`` split into b + 1 keys)."""
-    keys = key.static(1).split(b + 1)
-    return ([draw_train_clip_prompts(keys[i], t, Qp, HW) for i in range(b)],
-            float(keys[b].uniform(())))
+    ``make_rng("prompt")`` split into b + 1 keys, b the global batch's
+    videos; a ``shard`` takes its videos' keys)."""
+    first, total = (0, b) if shard is None else (shard.offset, shard.total)
+    keys = key.static(1).split(total + 1)
+    return ([draw_train_clip_prompts(keys[first + i], t, Qp, HW) for i in range(b)],
+            float(keys[total].uniform(())))
 
 
 def train_visual_prompts(grid_feats, grid_pos, gt_masks, gt_boxes, gt_occur, gt_obj_valid,

@@ -1,6 +1,6 @@
-"""Training state and the train step, one process (counterpart of
-``univs_tpu/parallel/train_state.py``; the data-parallel mesh waits for
-DDP).
+"""Training state and the train step (counterpart of
+``univs_tpu/parallel/train_state.py``): one process, or one a card under
+data parallelism (``parallel/ddp.py``).
 
 Mixed precision the way the JAX package does it: JAX keeps float32
 params and casts them to the compute dtype at use, so a parameter's
@@ -24,10 +24,17 @@ declares scale, bias, mean and var as plain params with no
 stop_gradient): ``create_train_state`` makes the port's trainable too
 (``running_mean`` / ``running_var`` become parameters), so inference
 builds keep their buffers.
+
+BoxVIS (``train.boxvis_enabled``) trains the box-projection loss; with
+``boxvis_ema_enabled`` an EMA teacher, a compute-dtype copy of the
+working model that takes the EMA masters before each update, runs a
+no-grad forward on the batch and its pseudo masks supervise the
+learnable queries (JAX ``train_state.py:225-246``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -38,8 +45,10 @@ import torch
 import torch.nn as nn
 
 from univs_tpu_torch.config import UniVSConfig
-from univs_tpu_torch.losses.criterion import TrainTargets, UniCriterion
+from univs_tpu_torch.losses.criterion import (TrainTargets, UniCriterion,
+                                              boxvis_teacher_pseudo_masks)
 from univs_tpu_torch.ops.mask_ops import masks_to_boxes
+from univs_tpu_torch.parallel.ddp import BatchShard
 from univs_tpu_torch.structures import TextPrompts
 from univs_tpu_torch.utils.weights import flax_leaf_of
 
@@ -241,13 +250,24 @@ def _model_inputs(cfg: UniVSConfig, batch: TrainBatch, task: str):
     return kwargs, cls_valid, level_sizes, tokens, targets
 
 
-def _adamw_group(state: TrainState, names, named, decay, c, lr_scaled: float, bc1: float,
-                 bc2: float) -> None:
-    """One label group's update on the float32 masters, in place: the
-    working gradients upcast (none: zero), clipped by the group's global
-    norm, Adam, decoupled decay where the mask says, x -lr_scaled."""
+def _group_grads(state: TrainState, names, named, shard: BatchShard) -> list:
+    """One label group's working gradients upcast to float32 (none: zero);
+    under data parallelism summed over the processes as one flat buffer,
+    before the clip sees them (JAX's psum)."""
     grads = [torch.zeros_like(state.params[n]) if named[n].grad is None
              else named[n].grad.to(torch.float32) for n in names]
+    if shard.distributed:
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat, group=shard.group)
+        grads = [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)]
+    return grads
+
+
+def _adamw_group(state: TrainState, names, grads, decay, c, lr_scaled: float, bc1: float,
+                 bc2: float) -> None:
+    """One label group's update on the float32 masters, in place: the
+    float32 gradients clipped by the group's global norm, Adam, decoupled
+    decay where the mask says, x -lr_scaled."""
     gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     factor = torch.where(gnorm < c.clip_gradients_value, 1.0, c.clip_gradients_value / gnorm)
     torch._foreach_mul_(grads, factor)
@@ -267,15 +287,32 @@ def _adamw_group(state: TrainState, names, named, decay, c, lr_scaled: float, bc
     torch._foreach_add_(masters, upd, alpha=-lr_scaled)
 
 
+def make_teacher(model: nn.Module) -> nn.Module:
+    """BoxVIS's EMA teacher: a compute-dtype copy of the working model
+    (its ``keep_float32`` parameters in float32, as ``_place`` builds it)
+    that takes no gradient; the step copies the EMA masters into it."""
+    teacher = copy.deepcopy(model)
+    for p in teacher.parameters():
+        p.requires_grad_(False)
+    return teacher.train()
+
+
+EVENTS = ("forward_ms", "teacher_ms", "backward_ms", "allreduce_ms", "optimizer_ms")
+
+
 def make_train_step(cfg: UniVSConfig, model: nn.Module, task: str = "detection",
-                    timings: Optional[Dict[str, float]] = None):
+                    timings: Optional[Dict[str, float]] = None, data_parallel: bool = False,
+                    group=None):
     """The train step of one task family: ``step(state, batch, key) ->
     (state, logged)`` with ``key`` a ``DrawKey``; the state and the
     working model are updated in place.  ``logged`` holds every loss of
     the criterion and ``total_loss`` as tensors.  With ``timings`` (a
     dict) each step on the card adds the ms of its forward (the criterion
-    included), backward and optimizer (CUDA events) under 'forward_ms',
-    'backward_ms' and 'optimizer_ms'."""
+    included), the BoxVIS teacher's forward, the backward, the gradient
+    all-reduce and the optimizer (CUDA events) under ``EVENTS``' names.
+    ``data_parallel`` (``parallel/ddp.make_train_step``): ``batch`` is
+    this process's shard of the global batch, in process group ``group``;
+    the step is the one-process step's on the global batch."""
     if task not in ("detection", "grounding", "sot"):
         raise ValueError(f"task {task!r}: the trainer takes detection, grounding or sot")
     c = cfg.train
@@ -284,39 +321,66 @@ def make_train_step(cfg: UniVSConfig, model: nn.Module, task: str = "detection",
     labels, decay = param_groups(model)
     scale = {"backbone": c.backbone_lr_multiplier, "rest": 1.0}
     named = trainable(model)
+    teacher = make_teacher(model) if c.boxvis_enabled and c.boxvis_ema_enabled else None
+    teacher_params = None if teacher is None else [dict(teacher.named_parameters())[n]
+                                                   for n in named]
 
     def events():
         if timings is None or not next(iter(named.values())).is_cuda:
             return None
-        return [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        return {k: torch.cuda.Event(enable_timing=True) for k in ("start", *EVENTS)}
 
     def step(state: TrainState, batch: TrainBatch, key):
         ev = events()
         k = key.fold_in(state.step)
-        _r_model, r_crit, r_shuffle, r_prompt = k.split(4)
+        r_model, r_crit, r_shuffle, r_prompt = k.split(4)
         kwargs, cls_valid, level_sizes, tokens, targets = _model_inputs(cfg, batch, task)
+        B = batch.images.shape[0]
+        shard = (BatchShard.of(B, group, batch.images.device) if data_parallel
+                 else BatchShard.whole(B))
         for p in named.values():
             p.grad = None
         if ev:
-            ev[0].record()
+            ev["start"].record()
+        pseudo = None
+        if teacher is not None:
+            # the EMA masters before this step's update; the teacher's
+            # shuffle takes r_model, the split the student leaves unused
+            with torch.no_grad():
+                torch._foreach_copy_(teacher_params, [state.ema_params[n] for n in named])
+                out_t = teacher(batch.images, batch.frame_indices, task=task, train=True,
+                                shuffle_key=r_model, prompt_key=r_prompt, shard=shard, **kwargs)
+                Ql = cfg.decoder.num_queries
+                pseudo = boxvis_teacher_pseudo_masks(
+                    r_crit.fold_in(31337), out_t["pred_logits"][:, :Ql],
+                    out_t["pred_masks"][:, :Ql], targets, cls_valid, c, shard)
+                del out_t
+        if ev:
+            ev["teacher_ms"].record()
         out = model(batch.images, batch.frame_indices, task=task, train=True,
-                    shuffle_key=r_shuffle, prompt_key=r_prompt, **kwargs)
+                    shuffle_key=r_shuffle, prompt_key=r_prompt, shard=shard, **kwargs)
         total, logged = criterion(
             r_crit, out, targets, cls_valid, task=task, class_loss=(task != "sot"),
-            sem_loss=(task == "detection"), level_sizes=level_sizes, tokens_per_prompt=tokens)
+            sem_loss=(task == "detection"), level_sizes=level_sizes, tokens_per_prompt=tokens,
+            boxvis=c.boxvis_enabled, pseudo=pseudo, shard=shard)
         if ev:
-            ev[1].record()
+            ev["forward_ms"].record()
         total.backward()
         if ev:
-            ev[2].record()
+            ev["backward_ms"].record()
         with torch.no_grad():
+            groups = {}
+            for group_name in ("backbone", "rest"):
+                names = [n for n in named if labels[n] == group_name]
+                if names:
+                    groups[group_name] = (names, _group_grads(state, names, named, shard))
+            if ev:
+                ev["allreduce_ms"].record()
             lr = sched(state.step)  # the schedule's count and Adam's before this update
             bc1 = float(1 - np.float32(B1) ** np.float32(state.step + 1))
             bc2 = float(1 - np.float32(B2) ** np.float32(state.step + 1))
-            for group in ("backbone", "rest"):
-                names = [n for n in named if labels[n] == group]
-                if names:
-                    _adamw_group(state, names, named, decay, c, lr * scale[group], bc1, bc2)
+            for group_name, (names, grads) in groups.items():
+                _adamw_group(state, names, grads, decay, c, lr * scale[group_name], bc1, bc2)
             params = [named[n] for n in named]
             torch._foreach_copy_(params, [state.params[n] for n in named])
             ema = [state.ema_params[n] for n in named]
@@ -324,14 +388,20 @@ def make_train_step(cfg: UniVSConfig, model: nn.Module, task: str = "detection",
             torch._foreach_add_(ema, [state.params[n] for n in named], alpha=1.0 - c.ema_decay)
         state.step += 1
         if ev:
-            ev[3].record()
+            ev["optimizer_ms"].record()
             torch.cuda.synchronize()
-            timings["forward_ms"] = timings.get("forward_ms", 0.0) + ev[0].elapsed_time(ev[1])
-            timings["backward_ms"] = timings.get("backward_ms", 0.0) + ev[1].elapsed_time(ev[2])
-            timings["optimizer_ms"] = timings.get("optimizer_ms", 0.0) + ev[2].elapsed_time(ev[3])
+            order = ("start", "teacher_ms", "forward_ms", "backward_ms", "allreduce_ms",
+                     "optimizer_ms")
+            for a, b in zip(order, order[1:]):
+                timings[b] = timings.get(b, 0.0) + ev[a].elapsed_time(ev[b])
         logged = {k: v.detach() for k, v in logged.items()}
         logged["total_loss"] = total.detach()
+        if shard.distributed:  # the global batch's losses on every process
+            names = list(logged)
+            summed = shard.count(torch.stack([logged[n].to(torch.float32) for n in names]))
+            logged = dict(zip(names, summed.unbind()))
         return state, logged
 
     step.criterion = criterion
+    step.teacher = teacher
     return step
