@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # every phase, on one card
     python3 chip_smoke.py pipeline   # the pipelining phase alone (two cards)
+    python3 chip_smoke.py eval       # the evaluation phase alone (one card)
     python3 chip_smoke.py ddp        # data parallelism over NCCL alone (two cards)
 
 With no arguments it runs every phase, in order (any failure exits
@@ -158,6 +159,27 @@ non-zero):
               step alone, a profile of one more run and of one window's
               backbone; and for PVTv2-b2 (linear SRA) one run; A/B/C at
               6 x window encodes, D/E/F 0;
+            * the evaluation path (``python3 chip_smoke.py eval`` runs it
+              alone): ``engine._eval_ytvis`` (30 frames, K=40, default
+              gates and gates open), ``_eval_vss`` (K=124), ``_eval_vps``
+              (K=124, 58 things, default gates and gates open),
+              ``_eval_vos`` and ``_eval_vos(pvos=True)`` (N=5, a class in
+              each VIPOSeg bucket), ``_eval_refvos`` (4 expressions,
+              random prompts) on 10 frames and ``_eval_image`` (one
+              frame, K=133) for UniVS-R50 at full width (bf16, 640x960,
+              one seeded model shared by every driver), over seeded
+              ``synth_blob_video`` frames and seeded moving ellipses
+              stored as native RLEs, through an in-memory mapper (the
+              card's machine has neither cv2 nor PIL); per task A/B/C at
+              6 x the driver's encodes, every metric finite, the host
+              seconds of the driver, the GT decode and the evaluator; the
+              oracle scores (the run's own predictions as ground truth:
+              AP, J, F and VPQ = 1); the native RLE byte-identical to the
+              numpy law on every mask produced and ``area`` /
+              ``intersection`` / ``iou`` on every GT x prediction pair;
+              ``YTVISEval`` on either backend; the native and numpy encode
+              of a fragmented 640x960 mask; a driver built per video from
+              a state_dict against one handed the built model;
   grads   — kernels A, B and C as ``autograd.Function``s (the kernel
             forward, the plain law's VJP backward) against their plain
             laws at the full-width encoder shape of the training batch
@@ -173,7 +195,9 @@ non-zero):
             the CPU (plain laws); the expressions tokenized once for both
             sides; one train step of each task (detection, sot,
             grounding) at a tiny training config, losses within 1e-3 and
-            Hungarian assignments identical.
+            Hungarian assignments identical; ``engine._eval_ytvis`` and
+            ``engine._eval_vos`` (the same entities, RLE IoU >= 0.99,
+            metrics within 1e-3).
 
 Prints one JSON line per check, the ``kernels`` summary line and the card
 line, and last ``{"ok": true, "device": {...}}``.  Exits with a non-zero
@@ -3344,6 +3368,431 @@ def run_pipeline_path(model):
     return bool(counts_ok and same and same_open), launches
 
 
+# ---------------------------------------------------------------------------
+# the evaluation path: engine._eval_* -> drivers -> evaluators
+# ---------------------------------------------------------------------------
+
+# frames of each task but VIS, cut from 30: DAVIS J&F's disk-dilated
+# boundaries take ~0.6 s of host time an object-frame at 640x960
+EVAL_FRAMES = 6
+EVAL_FAF = (0, 0, 2, 3, 4)  # first appearances within EVAL_FRAMES
+# 1-based json class ids of the five objects: VIPOSeg's thing seen 60,
+# stuff seen 28, thing unseen 102, stuff unseen 9 and thing seen 89, so
+# every G bucket holds samples (0-based in the VIPOSeg tables)
+PVOS_RAW_CLASSES = (61, 29, 103, 10, 90)
+VIPSEG_CLASSES_OF_OBJECTS = (3, 5, 1, 2, 42)  # things 3, 5, 42 and stuff 1, 2
+COCO_CLASSES_OF_OBJECTS = (1, 2, 81, 90, 3)  # things 1, 2, 3 and stuff 81, 90
+
+
+class Recorded(HostTime):
+    """``HostTime`` that also keeps every return value (``outputs``)."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.outputs = []
+        fn = getattr(self._owner, self._name)
+
+        def keep(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.outputs.append(out)
+            return out
+
+        setattr(self._owner, self._name, keep)
+        return self
+
+
+def importable(name: str) -> bool:
+    import importlib
+
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def moving_ellipses(faf, V, H, W, seed):
+    """[N, V, H, W] uint8: object n a seeded ellipse in its own cell of a
+    grid, drifting a few pixels a frame, present from frame faf[n] on."""
+    import math
+
+    rng = np.random.RandomState(seed)
+    N = len(faf)
+    cols = math.ceil(math.sqrt(N))
+    rows = math.ceil(N / cols)
+    ch, cw = H / rows, W / cols
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    out = np.zeros((N, V, H, W), np.uint8)
+    for n, f in enumerate(faf):
+        cy = (n // cols + rng.uniform(0.35, 0.65)) * ch
+        cx = (n % cols + rng.uniform(0.35, 0.65)) * cw
+        ry, rx = rng.uniform(0.2, 0.35) * ch, rng.uniform(0.2, 0.35) * cw
+        vy, vx = rng.uniform(-1, 1, 2) * min(ch, cw) / 60
+        for t in range(max(f, 0), V):
+            out[n, t] = ((yy - cy - vy * t) / ry) ** 2 + ((xx - cx - vx * t) / rx) ** 2 <= 1
+    return out
+
+
+def eval_records(masks, faf, task, video_id, classes):
+    """One video's record with the objects of ``masks`` as annotations,
+    their segmentations RLEs from the native encoder (None before their
+    first appearance)."""
+    from univs_tpu_torch.utils import rle
+
+    N, V, H, W = masks.shape
+    anns = []
+    for n in range(N):
+        segs = [rle.encode(masks[n, t]) if t >= faf[n] else None for t in range(V)]
+        anns.append({"id": n + 1, "category_id": classes[n], "raw_category_id": classes[n],
+                     "iscrowd": 0, "segmentations": segs})
+    return {"video_id": video_id, "video_name": f"chip_{video_id}", "dataset_name": "chip_smoke",
+            "file_names": [], "height": H, "width": W, "length": V, "task": task,
+            "annotations": anns}
+
+
+class ArrayMapper:
+    """The eval mapper over frames held in memory: the port's eval
+    transform (``resize_shortest_edge``; the identity at 640x960, so no
+    cv2) on the first ``length`` frames, and no file decode (no PIL)."""
+
+    def __init__(self, frames, short: int, divisibility: int):
+        self.frames, self.short, self.div = frames, short, divisibility
+
+    def __call__(self, rec):
+        from univs_tpu_torch.data.augment import resize_shortest_edge, transformed_image_size
+
+        h, w, n = rec["height"], rec["width"], rec["length"]
+        t = resize_shortest_edge((h, w), self.short, 1333, self.div)
+        images = np.stack([t.apply_image(f) for f in self.frames[:n]]).astype(np.float32)
+        return {"images": images, "image_size": transformed_image_size(t, (h, w)),
+                "out_size": (h, w), "video_id": rec["video_id"], "video_len": n,
+                "dataset_name": rec["dataset_name"], "task": rec["task"], "record": rec,
+                "transform": t}
+
+
+def metrics_finite(metrics: dict) -> bool:
+    """Every metric finite: the records are built so that JAX's law gives
+    no NaN (each G bucket has samples, mVC's window fits the video)."""
+    return all(np.isfinite(v) for k, v in metrics.items() if k != "fps")
+
+
+def rle_agreement(masks=(), rles=()) -> dict:
+    """The native encoder against the numpy law: every binary mask of
+    ``masks`` encoded by both, every dict of ``rles`` re-encoded from its
+    native decode by the numpy law, byte-identical dicts."""
+    from univs_tpu_torch.utils import rle
+
+    n = same = 0
+    for m in masks:
+        n += 1
+        same += bool(rle.encode(m) == rle.encode_numpy(m))
+    for r in rles:
+        n += 1
+        same += bool(rle.encode_numpy(rle.decode(r)) == r
+                     and int(rle.decode_numpy(r).sum()) == rle.area(r))
+    return {"masks": n, "identical": same, "pass": same == n}
+
+
+def rle_pair_agreement(gts, entities) -> dict:
+    """``area`` / ``intersection`` / ``iou``, native against the numpy law,
+    on every (GT object, predicted entity, frame) pair."""
+    from univs_tpu_torch.utils import rle
+
+    pairs = same = 0
+    for g in gts:
+        for e in entities:
+            for a, b in zip(g["segmentations"], e["segmentations"]):
+                if a is None or b is None:
+                    continue
+                ia, ib, ii = rle.area_numpy(a), rle.area_numpy(b), rle.intersection_numpy(a, b)
+                union = ia + ib - ii
+                pairs += 1
+                same += ((rle.area(a), rle.area(b), rle.intersection(a, b), rle.iou(a, b))
+                         == (ia, ib, ii, ii / union if union > 0 else 0.0))
+    return {"pairs": pairs, "agree": same, "pass": same == pairs}
+
+
+def eval_task(label, fn, driver_spot, expected, card, parts=(), extra_spots=()):
+    """Run ``fn`` (one ``engine._eval_*`` call) with the launch counts set to
+    0 just before it; returns (record, launches, the driver method's
+    outputs, the outputs of ``extra_spots``).  Host seconds: the driver's
+    calls, the GT decode (``segmentation_to_mask``), the frame mapping,
+    the rest of the call (the evaluator: metrics, class lookups, outputs)
+    and within it each of ``parts`` ((owner, name) of an evaluator
+    function)."""
+    import contextlib
+
+    from univs_tpu_torch import engine
+
+    with contextlib.ExitStack() as stack:
+        drv = stack.enter_context(Recorded(*driver_spot))
+        dec = stack.enter_context(HostTime(engine, "segmentation_to_mask"))
+        mapr = stack.enter_context(HostTime(ArrayMapper, "__call__"))
+        extra = [stack.enter_context(Recorded(*s)) for s in extra_spots]
+        timed = {f"{owner.__name__.rsplit('.', 1)[-1]}.{name}":
+                 stack.enter_context(HostTime(owner, name)) for owner, name in parts}
+        t0 = time.perf_counter()
+        metrics, launches = counted(fn)
+        wall = time.perf_counter() - t0
+    rec = {"eval": label, "metrics": metrics, "wall_s": wall, "driver_s": drv.s,
+           "driver_calls": drv.calls, "gt_decode_s": dec.s, "gt_decodes": dec.calls,
+           "mapper_s": mapr.s, "evaluator_host_s": wall - drv.s - dec.s - mapr.s,
+           "evaluator_parts_s": {k: t.s for k, t in timed.items()},
+           "metrics_finite": metrics_finite(metrics), "card": card}
+    rec["launches_ok"] = check_launches(f"eval {label}", launches, expected)
+    rec["kernels_launched"] = all(launches[k] > 0 for k in ENCODER_KERNELS)
+    return rec, launches, drv.outputs, [e.outputs for e in extra]
+
+
+def run_eval_path(model):
+    """The evaluation path at full width (item 16a/b/d): ``engine._eval_*``
+    for UniVS-R50 (default config, bf16, 640x960, seeded random weights,
+    the model built once and shared by every driver) over seeded
+    ``synth_blob_video`` frames with seeded moving elliptical GT stored as
+    native RLEs, through an in-memory mapper.  Per task: launches (A/B/C
+    at 6 x the driver's encodes), metrics finite, host seconds split; the
+    oracle scores (the run's own predictions as ground truth: AP = 1, J =
+    F = 1, VPQ = 1); native RLE byte-identical to the numpy law on every
+    mask produced; YTVISEval native against numpy; the native and numpy
+    encode of a fragmented 640x960 mask; the cost of building a driver per
+    video from a state_dict against handing it the built model.  Returns
+    (ok, {path: launches})."""
+    import math
+
+    import torch
+
+    from univs_tpu_torch import engine
+    from univs_tpu_torch.evaluation import davis, panoptic, pvos as pvos_eval, stq, vpq, vss
+    from univs_tpu_torch.evaluation.davis import evaluate_davis_sequence
+    from univs_tpu_torch.evaluation.vpq import vpq_single_video
+    from univs_tpu_torch.evaluation.ytvis import YTVISEval
+    from univs_tpu_torch.inference import image
+    from univs_tpu_torch.inference.driver import EntityDriver, VOSDriver
+    from univs_tpu_torch.inference.image import ImageDriver
+    from univs_tpu_torch.utils import rle
+    from univs_tpu_torch.utils.synth import synth_blob_video
+
+    phase_t0 = time.perf_counter()
+    card = card_line()
+    cfg = model.cfg
+    inf = cfg.inference
+    (H, W), V = FULL_HW, MAIN_PATH_FRAMES
+    layers = cfg.pixel_decoder.num_layers
+    env = {"eval": "environment", "cv2": importable("cv2"), "PIL": importable("PIL"),
+           "rle_backend": rle.backend(), "card": card}
+    emit(env)
+    ok = env["rle_backend"] == "native"
+
+    t0 = time.perf_counter()
+    frames = synth_blob_video(V, H, W, n_blobs=8, seed=12)  # 8 of 24 blobs: ~3x less host time
+    masks = moving_ellipses(EVAL_FAF, V, H, W, seed=12)
+    setup_s = time.perf_counter() - t0
+    mapper = ArrayMapper(frames, inf.min_size_test, inf.size_divisibility)
+    dim = cfg.decoder.clip_cls_emb_dim
+    rng = np.random.RandomState(12)
+    bank40, bank124, bank133 = (rng.randn(k, dim).astype(np.float32)
+                                for k in (40, VIPSEG_CLASSES, COCO_PANOPTIC_CLASSES))
+    short = masks[:, :EVAL_FRAMES]
+    by_path, records = {}, []
+
+    def probe(cls, **kw):  # the driver the engine builds, for its encode count
+        return cls(cfg, model, **kw)
+
+    # -- VIS: 30 frames, K=40, default gates, then gates open ---------------
+    vis_rec = eval_records(masks, EVAL_FAF, "detection", 1, (1, 2, 3, 4, 5))
+    enc = probe(EntityDriver, num_classes=40, capacity=inf.max_num_instances).num_window_encodes(V)
+    ytvis_parts = ((YTVISEval, "evaluate"),)
+    r, by_path["eval ytvis"], _, _ = eval_task(
+        "ytvis", lambda: engine._eval_ytvis(cfg, model, [vis_rec], mapper, bank40, None),
+        (EntityDriver, "run_vis"), expected_launches(enc, layers), card, ytvis_parts)
+    records.append(r)
+    open_cfg = with_gates_open(cfg)
+    r, by_path["eval ytvis gates open"], ents, (jsons,) = eval_task(
+        "ytvis gates open",
+        lambda: engine._eval_ytvis(open_cfg, model, [vis_rec], mapper, bank40, None),
+        (EntityDriver, "run_vis"), expected_launches(enc, layers), card, ytvis_parts,
+        extra_spots=((engine, "vis_results_to_ytvis_json"),))
+    records.append(r)
+    ents, vis_preds = ents[0], jsons[0]
+    r["entities"], r["predictions"] = len(ents), len(vis_preds)
+    # oracle: the non-empty predictions as their own ground truth
+    live = [p for p in vis_preds if any(rle.area(s) for s in p["segmentations"])]
+    oracle_gt = [{"video_id": p["video_id"], "category_id": p["category_id"], "id": i,
+                  "segmentations": p["segmentations"]} for i, p in enumerate(live)]
+    r["oracle_AP"] = YTVISEval(oracle_gt, live).evaluate()["AP"] if live else float("nan")
+    r["oracle_ok"] = len(live) > 0 and r["oracle_AP"] == 1.0
+    gts = [dict(a, video_id=1, category_id=a["category_id"] - 1)
+           for a in vis_rec["annotations"]]
+    r["rle_native_vs_numpy"] = rle_agreement(
+        rles=[s for e in ents for s in e["segmentations"]]
+        + [s for a in vis_rec["annotations"] for s in a["segmentations"] if s])
+    r["rle_pairs_native_vs_numpy"] = rle_pair_agreement(gts, ents)
+    timings = {}
+    for name in ("native", "numpy"):
+        native = rle._native
+        if name == "numpy":
+            rle._native = lambda: None
+        try:
+            t0 = time.perf_counter()
+            out = YTVISEval(gts, vis_preds).evaluate()
+            timings[name] = {"s": time.perf_counter() - t0, "metrics": out}
+        finally:
+            rle._native = native
+    r["ytvis_eval_s"] = {k: v["s"] for k, v in timings.items()}
+    r["ytvis_eval_same"] = timings["native"]["metrics"] == timings["numpy"]["metrics"]
+    ok &= r["oracle_ok"] and r["ytvis_eval_same"] and r["rle_native_vs_numpy"]["pass"] \
+        and r["rle_pairs_native_vs_numpy"]["pass"]
+
+    # -- VSS (VSPW, K=124) -------------------------------------------------
+    vss_rec = eval_records(short, EVAL_FAF, "detection", 2, VIPSEG_CLASSES_OF_OBJECTS)
+    r, by_path["eval vss"], _, _ = eval_task(
+        "vss", lambda: engine._eval_vss(cfg, model, [vss_rec], mapper, bank124),
+        (EntityDriver, "run_vss"), expected_launches(math.ceil(EVAL_FRAMES / inf.num_frames),
+                                                      layers), card,
+        ((vss, "confusion_matrix"), (vss, "video_consistency")))
+    records.append(r)
+
+    # -- VPS (VIPSeg, K=124, 58 things), default gates, then gates open ----
+    vps_rec = eval_records(short, EVAL_FAF, "detection", 3, VIPSEG_CLASSES_OF_OBJECTS)
+    enc = probe(EntityDriver, num_classes=124, capacity=inf.max_num_instances).num_window_encodes(
+        EVAL_FRAMES)
+    things = set(VIPSEG_THING_IDS)
+    for label, c in (("vps", cfg), ("vps gates open", open_cfg)):
+        r, by_path[f"eval {label}"], pans, _ = eval_task(
+            label, lambda: engine._eval_vps(c, model, [vps_rec], mapper, bank124, things),
+            (EntityDriver, "run_vps"), expected_launches(enc, layers), card,
+            ((vpq, "vpq_single_video"), (stq.STQAccumulator, "update")))
+        pan, info = pans[0]
+        cats = {si["id"]: si["category_id"] - 1 for si in info}
+        r["segments"] = len(info)
+        r["rle_native_vs_numpy"] = rle_agreement(
+            masks=[(pan[t] == si["id"]).astype(np.uint8) for si in info for t in range(len(pan))])
+        ok &= r["rle_native_vs_numpy"]["pass"]
+        if info:  # the panoptic map against itself
+            r["oracle_VPQ"] = vpq_single_video(list(pan), cats, list(pan), cats,
+                                               VIPSEG_CLASSES, (1, 2, 4, 6))["vpq"]
+            r["oracle_ok"] = r["oracle_VPQ"] == 1.0
+        records.append(r)
+    ok &= records[-1].get("oracle_ok", False)
+
+    # -- VOS and PVOS (N=5), RefVOS (4 expressions, random prompts) --------
+    enc = probe(VOSDriver, capacity=len(EVAL_FAF)).num_window_encodes(EVAL_FRAMES)
+    for label, pvos in (("vos", False), ("pvos", True)):
+        rec = eval_records(short, EVAL_FAF, "sot", 4, PVOS_RAW_CLASSES)
+        r, by_path[f"eval {label}"], labs, _ = eval_task(
+            label, lambda: engine._eval_vos(cfg, model, [rec], mapper, bank40, pvos=pvos),
+            (VOSDriver, "run"), expected_launches(enc, layers), card,
+            ((davis, "evaluate_davis_sequence"), (pvos_eval, "pvos_video_samples")))
+        lab = labs[0]
+        pred = np.stack([(lab == n + 1) for n in range(len(EVAL_FAF))]).astype(np.uint8)
+        oracle = evaluate_davis_sequence(pred, pred)
+        r["oracle_J"], r["oracle_F"] = oracle["J"], oracle["F"]
+        r["oracle_ok"] = lab.shape == (EVAL_FRAMES, H, W) and oracle["J"] == oracle["F"] == 1.0
+        r["objects_labelled"] = int(len(np.unique(lab)) - (lab == 0).any())
+        r["rle_native_vs_numpy"] = rle_agreement(masks=pred.reshape(-1, H, W))
+        ok &= r["oracle_ok"] and r["rle_native_vs_numpy"]["pass"]
+        records.append(r)
+    ref_rec = eval_records(short[:4], EVAL_FAF[:4], "grounding", 5, (1, 2, 3, 4))
+    ref_rec["expressions"] = list(EXPRESSIONS)
+    ref_rec["exp_obj_ids"] = [1, 2, 3, 4]
+    enc = probe(VOSDriver, capacity=4).num_window_encodes(EVAL_FRAMES)
+    r, by_path["eval refvos"], outs, _ = eval_task(
+        "refvos", lambda: engine._eval_refvos(cfg, model, [ref_rec], mapper, bank40),
+        (VOSDriver, "run_grounding"), expected_launches(enc, layers), card,
+        ((davis, "evaluate_davis_sequence"),))
+    got = outs[0]
+    r["oracle_ok"] = got.shape == (4, EVAL_FRAMES, H, W)
+    r["rle_native_vs_numpy"] = rle_agreement(masks=got.reshape(-1, H, W))
+    ok &= r["oracle_ok"] and r["rle_native_vs_numpy"]["pass"]
+    records.append(r)
+
+    # -- image (COCO panoptic, K=133), one frame ---------------------------
+    img_rec = eval_records(masks[:, :1], (0,) * 5, "detection", 6, COCO_CLASSES_OF_OBJECTS)
+    r, by_path["eval image"], _, _ = eval_task(
+        "image", lambda: engine._eval_image(cfg, model, [img_rec], mapper, bank133,
+                                            set(range(1, COCO_THINGS + 1))),
+        (ImageDriver, "run"), expected_launches(1, layers), card,
+        ((image, "instance_inference"), (image, "panoptic_inference"),
+         (image, "semantic_inference"), (panoptic.PQStat, "update"), (YTVISEval, "evaluate")))
+    records.append(r)
+
+    for r in records:
+        ok &= r["launches_ok"] and r["metrics_finite"]
+        emit(r)
+
+    # readings: the encoders on a fragmented 640x960 mask, a driver per video
+    frag = (np.random.RandomState(13).rand(H, W) > 0.97).astype(np.uint8)
+    frag |= masks[:, 0].max(0)
+    enc_ms = {}
+    for name, fn in (("native", rle.encode), ("numpy", rle.encode_numpy)):
+        fn(frag)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(frag)
+        enc_ms[name] = (time.perf_counter() - t0) / 3 * 1e3
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    build_s = {}
+    for name, params in (("state_dict", state), ("built_model", model)):
+        t0 = time.perf_counter()
+        d = VOSDriver(cfg, params, capacity=len(EVAL_FAF))
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        del d
+    del state
+    emit({"eval": "readings", "rle_encode_ms_fragmented_640x960": enc_ms,
+          "rle_runs": int(len(rle._counts_from_mask(frag))),
+          "vos_driver_per_video_s": build_s, "setup_s": setup_s,
+          "phase_s": time.perf_counter() - phase_t0, "card": card})
+    torch.cuda.empty_cache()
+    return bool(ok), by_path
+
+
+def reference_check_engine() -> bool:
+    """``engine._eval_ytvis`` and ``engine._eval_vos`` on the tiny config in
+    float32, card (through the kernels) vs CPU (plain laws), the same
+    seeded weights, frames and GT: the same entities (ids, each frame's
+    RLE IoU >= 0.99), each VOS object's mask per frame IoU >= 0.99, and
+    every metric within 1e-3."""
+    from univs_tpu_torch import engine
+    from univs_tpu_torch.inference.driver import EntityDriver, VOSDriver
+    from univs_tpu_torch.utils import rle
+
+    t0 = time.perf_counter()
+    cfg, video, _ = tiny_setup()
+    V, H, W = video.shape[:3]
+    K = 5
+    bank = np.random.RandomState(7).randn(K, cfg.decoder.clip_cls_emb_dim).astype(np.float32)
+    faf = (0, 0, 3)
+    masks = moving_ellipses(faf, V, H, W, seed=7)
+    mapper = ArrayMapper(video, H, 32)
+    vis_rec = eval_records(masks, faf, "detection", 1, (1, 2, 3))
+    vos_rec = eval_records(masks, faf, "sot", 2, (1, 2, 3))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with Recorded(EntityDriver, "run_vis") as ents, Recorded(VOSDriver, "run") as labs:
+            (m_vis, m_vos), launches = counted(lambda: (
+                engine._eval_ytvis(cfg, None, [vis_rec], mapper, bank, None, device=dev),
+                engine._eval_vos(cfg, None, [vos_rec], mapper, bank, device=dev)))
+        out[dev] = (m_vis, m_vos, ents.outputs[0], labs.outputs[0], launches)
+    (gv, go, ge, gl, launches), (wv, wo, we, wl, _) = out["cuda"], out["cpu"]
+    launched = all(launches[k] > 0 for k in ENCODER_KERNELS)
+    same_ids = [e["obj_id"] for e in ge] == [e["obj_id"] for e in we] and len(we) >= 1
+    iou = 1.0
+    if same_ids:
+        for g, w in zip(ge, we):
+            iou = min(iou, min_iou([rle.decode(a).astype(bool) for a in g["segmentations"]],
+                                   [rle.decode(b).astype(bool) for b in w["segmentations"]]))
+    vos_iou = min(min_iou([f == o for f in gl], [f == o for f in wl]) for o in range(1, 4))
+    err = max(abs(gm[k] - wm[k]) for gm, wm in ((gv, wv), (go, wo)) for k in wm if k != "fps")
+    ok = launched and same_ids and iou >= 0.99 and vos_iou >= 0.99 and err <= 1e-3
+    emit({"check": "engine_tiny_cuda_vs_cpu", "entities_cuda": len(ge), "entities_cpu": len(we),
+          "kernels_launched": launched, "min_entity_rle_iou": iou, "min_vos_mask_iou": vos_iou,
+          "metrics_cuda": {"ytvis": gv, "vos": go}, "metrics_cpu": {"ytvis": wv, "vos": wo},
+          "max_metric_abs_err": err, "s": time.perf_counter() - t0, "pass": bool(ok)})
+    return bool(ok)
+
+
 def main(argv) -> int:
     import torch
 
@@ -3377,6 +3826,23 @@ def main(argv) -> int:
             log(f"ddp needs two cards, {torch.cuda.device_count()} visible")
             return 1
         ok, _ = run_ddp_path("nccl")
+        print(card, flush=True)
+        if not ok:
+            log("FAILED")
+            return 1
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if argv == ["eval"]:
+        # the evaluation phase alone: the engine's seven routes at full
+        # width, then the tiny card-vs-CPU engine check
+        from univs_tpu_torch.config import UniVSConfig
+        from univs_tpu_torch.models.univs import build_model
+
+        ok, _ = run_eval_path(build_model(UniVSConfig(dtype="bfloat16"), None, seed=0,
+                                          device="cuda"))
+        ok &= reference_check_engine()
         print(card, flush=True)
         if not ok:
             log("FAILED")
@@ -3444,6 +3910,14 @@ def main(argv) -> int:
     for name, run in (("run_vis swin_large", run_swin_path), ("run_vis pvt_v2_b2", run_pvt_path)):
         path_ok, by_path[name] = run()
         ok &= path_ok
+    from univs_tpu_torch.config import UniVSConfig
+    from univs_tpu_torch.models.univs import build_model
+
+    path_ok, eval_paths = run_eval_path(build_model(UniVSConfig(dtype="bfloat16"), None, seed=0,
+                                                    device="cuda"))
+    ok &= path_ok
+    by_path.update(eval_paths)
+    torch.cuda.empty_cache()
     ok &= reference_check()
     ok &= reference_check_vss()
     ok &= reference_check_vps()
@@ -3455,6 +3929,7 @@ def main(argv) -> int:
     ok &= reference_check_fast_vis()
     ok &= reference_check_image()
     ok &= reference_check_train()
+    ok &= reference_check_engine()
 
     rows = []
     for name in kernels.KERNELS:

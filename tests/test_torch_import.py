@@ -97,6 +97,24 @@ def test_entry_points_refuse_cpu_without_request(monkeypatch):
         univs_models.build_decoder(cfg, device="cuda")
 
 
+def test_evaluate_dataset_refuses_cpu_without_request(monkeypatch, tmp_path):
+    """The engine resolves its device before it reads a dataset, and every
+    per-task evaluator builds its drivers there."""
+    from univs_tpu_torch import engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("UNIVS_TPU_DATA_ROOT", str(tmp_path))  # holds no dataset
+    cfg = tiny_test_config()
+    bank = np.zeros((2, cfg.decoder.clip_cls_emb_dim), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.evaluate_dataset(cfg, None, "ytvis_2019_val", bank)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine._eval_vos(cfg, None, [], None, bank)
+    with pytest.warns(RuntimeWarning):  # no video: JAX's NaN metrics
+        out = engine._eval_vss(cfg, None, [], None, bank, device="cpu")
+    assert sorted(out) == ["fps", "mAcc", "mIoU", "mVC"]
+
+
 def test_train_draws_refuse_cpu_without_request(monkeypatch):
     """The train step draws on its key's device: the key is made on the
     card unless the caller asks for the CPU."""
