@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # every phase, on one card
     python3 chip_smoke.py pipeline   # the pipelining phase alone (two cards)
     python3 chip_smoke.py eval       # the evaluation phase alone (one card)
+    python3 chip_smoke.py entry      # weight intake and the entry points alone (one card)
     python3 chip_smoke.py ddp        # data parallelism over NCCL alone (two cards)
 
 With no arguments it runs every phase, in order (any failure exits
@@ -3793,6 +3794,408 @@ def reference_check_engine() -> bool:
     return bool(ok)
 
 
+# ---------------------------------------------------------------------------
+# the entry phase: weight intake, run_net, demo and profiling
+# ---------------------------------------------------------------------------
+
+ENTRY_FRAMES = 10
+ENTRY_FAF = (0, 0, 2, 4, 6)
+ENTRY_DATASET = "ytvis_2019_val"
+# the CLI's gates open (yacs pair form), so seeded weights admit entities
+ENTRY_OPTS = ("MODEL.BoxVIS.TEST.APPLY_CLS_THRES", "0.0", "inference.consistency_thres",
+              "(-1.0, 0.5)")
+_MHA_OWNER = r"cross_\d+|self_\d+|proca_\d+|lang2vision"
+_REFERENCE_RULES = (  # port state_dict name -> reference name (d2 R50, UniVS heads)
+    (r"backbone\.stem_conv\.weight", "backbone.stem.conv1.weight"),
+    (r"backbone\.stem_bn\.(\w+)", r"backbone.stem.conv1.norm.\1"),
+    (r"backbone\.res(\d)_block(\d+)\.conv(\d)\.weight", r"backbone.res\1.\2.conv\3.weight"),
+    (r"backbone\.res(\d)_block(\d+)\.bn(\d)\.(\w+)", r"backbone.res\1.\2.conv\3.norm.\4"),
+    (r"backbone\.res(\d)_block(\d+)\.shortcut\.weight", r"backbone.res\1.\2.shortcut.weight"),
+    (r"backbone\.res(\d)_block(\d+)\.shortcut_bn\.(\w+)",
+     r"backbone.res\1.\2.shortcut.norm.\3"),
+    (r"pixel_decoder\.level_embed", "PD.transformer.level_embed"),
+    (r"pixel_decoder\.input_proj_(\d+)\.(\w+)", r"PD.input_proj.\1.0.\2"),
+    (r"pixel_decoder\.input_proj_gn_(\d+)\.(\w+)", r"PD.input_proj.\1.1.\2"),
+    (r"pixel_decoder\.encoder_layer_(\d+)\.(.*)", r"PD.transformer.encoder.layers.\1.\2"),
+    (r"pixel_decoder\.adapter_(\d+)\.weight", lambda m: f"PD.adapter_{int(m[1]) + 1}.weight"),
+    (r"pixel_decoder\.adapter_gn_(\d+)\.(\w+)",
+     lambda m: f"PD.adapter_{int(m[1]) + 1}.norm.{m[2]}"),
+    (r"pixel_decoder\.layer_(\d+)\.weight", lambda m: f"PD.layer_{int(m[1]) + 1}.weight"),
+    (r"pixel_decoder\.layer_gn_(\d+)\.(\w+)", lambda m: f"PD.layer_{int(m[1]) + 1}.norm.{m[2]}"),
+    (r"pixel_decoder\.mask_features\.(\w+)", r"PD.mask_features.\1"),
+    (r"decoder\.query_feat", "P.static_query.weight"),  # the historical name
+    (r"decoder\.(query_embed|level_embed)", r"P.\1.weight"),
+    (r"decoder\.(cls_temp|reid_temp|prompt_detection|prompt_sot|prompt_grounding)",
+     r"P.\1.weight"),
+    (r"decoder\.(decoder_norm|text_norm|vis2text_projection|text2vis_projection)\.(\w+)",
+     r"P.\1.\2"),
+    (r"decoder\.cross_(\d+)\.attn\.(.*)", r"P.transformer_cross_attention_layers.\1.multihead_attn.\2"),
+    (r"decoder\.cross_(\d+)\.norm\.(\w+)", r"P.transformer_cross_attention_layers.\1.norm.\2"),
+    (r"decoder\.self_(\d+)\.attn\.(.*)", r"P.transformer_self_attention_layers.\1.self_attn.\2"),
+    (r"decoder\.self_(\d+)\.norm\.(\w+)", r"P.transformer_self_attention_layers.\1.norm.\2"),
+    (r"decoder\.proca_(\d+)\.attn\.(.*)",
+     r"P.transformer_prompt_self_attention_layers.\1.multihead_attn.\2"),
+    (r"decoder\.proca_(\d+)\.norm\.(\w+)", r"P.transformer_prompt_self_attention_layers.\1.norm.\2"),
+    (r"decoder\.lang2vision\.attn\.(.*)", r"P.lang2vision_cross_attention_layer.multihead_attn.\1"),
+    (r"decoder\.lang2vision\.norm\.(\w+)", r"P.lang2vision_cross_attention_layer.norm.\1"),
+    (r"decoder\.ffn_(\d+)\.(.*)", r"P.transformer_ffn_layers.\1.\2"),
+    (r"decoder\.mask_embed\.layer(\d)\.(\w+)", r"P.mask_embed.layers.\1.\2"),
+)
+
+
+def reference_checkpoint(sd) -> dict:
+    """A UniVS-R50 state_dict of the port -> the reference checkpoint's
+    names (d2 ``backbone.*``, ``sem_seg_head.pixel_decoder.*``,
+    ``sem_seg_head.predictor.*`` with packed attention projections,
+    ``static_query``, the 1-row embeddings as [1, C]); the converters of
+    ``utils/convert_univs.py`` read backwards (tests/torch_convert_util.py
+    holds the same map for every backbone)."""
+    import re
+
+    import torch
+
+    sd = {k: v.detach().cpu() for k, v in sd.items()}
+    for k in [k for k in sd if re.fullmatch(rf"decoder\.({_MHA_OWNER})\.attn\.q_proj\.weight", k)]:
+        p = k[: -len("q_proj.weight")]
+        for leaf in ("weight", "bias"):
+            sd[f"{p}in_proj_{leaf}"] = torch.cat([sd.pop(f"{p}{n}_proj.{leaf}") for n in "qkv"])
+    out = {}
+    for k, v in sd.items():
+        for pat, rep in _REFERENCE_RULES:
+            m = re.fullmatch(pat, k)
+            if m:
+                name = rep(m) if callable(rep) else m.expand(rep)
+                break
+        else:
+            raise KeyError(f"no reference name for {k}")
+        name = name.replace("PD.", "sem_seg_head.pixel_decoder.", 1).replace(
+            "P.", "sem_seg_head.predictor.", 1)
+        if re.search(r"predictor\.(cls_temp|reid_temp|prompt_\w+)\.weight$", name):
+            v = v.reshape(1, -1)
+        out[name] = v.contiguous()
+    return out
+
+
+def write_ytvis_tree(root: str, frames, masks) -> str:
+    """``ENTRY_DATASET``'s JSON and JPEG frames under ``root`` (one video;
+    each object's per-frame RLE from the native encoder, None before it
+    appears); returns the frame folder."""
+    from PIL import Image
+
+    from univs_tpu_torch.data.datasets import get_spec
+    from univs_tpu_torch.utils import rle
+
+    spec = get_spec(ENTRY_DATASET)
+    folder = os.path.join(root, spec.image_root, "chip")
+    os.makedirs(folder, exist_ok=True)
+    names = []
+    for t, f in enumerate(frames):
+        Image.fromarray(f).save(os.path.join(folder, f"{t:05d}.jpg"), quality=95)
+        names.append(f"chip/{t:05d}.jpg")
+    N, V, H, W = masks.shape
+    anns = [{"id": n + 1, "video_id": 1, "category_id": n + 1, "iscrowd": 0,
+             "segmentations": [rle.encode(masks[n, t]) if masks[n, t].any() else None
+                               for t in range(V)]} for n in range(N)]
+    data = {"videos": [{"id": 1, "file_names": names, "height": H, "width": W, "length": V}],
+            "annotations": anns, "categories": [{"id": c, "name": str(c)} for c in range(1, 41)]}
+    path = os.path.join(root, spec.json_path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(data, f)
+    return folder
+
+
+def cli(main, argv):
+    """Run an entry point's ``main(argv)`` in-process: (its stdout, s)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+class TimedSteps:
+    """Seconds of every train step the CLI takes (synchronised), through
+    ``make_train_step`` while the ``with`` block runs."""
+
+    def __enter__(self):
+        import torch
+
+        from univs_tpu_torch.parallel import train_state
+
+        self._mod, self._make = train_state, train_state.make_train_step
+        self.s = []
+
+        def make(*args, **kwargs):
+            step = self._make(*args, **kwargs)
+
+            def timed(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*a, **k)
+                torch.cuda.synchronize()
+                self.s.append(time.perf_counter() - t0)
+                return out
+            return timed
+
+        train_state.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.make_train_step = self._make
+
+
+def video_frame_count(path: str) -> int:
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def run_entry_path():
+    """Weight intake and the entry points at full width (UniVS-R50, bf16,
+    640x960): a reference-named checkpoint (d2 R50, ``sem_seg_head.*``,
+    ``static_query``; the student from the port's seeded init, seed 0, the
+    EMA teacher from seed 1 under ``teacher.``) through ``load_params`` and
+    ``build_model`` equal to the seed-1 model bit for bit;
+    ``run_net --eval-only --weights`` on a synthetic ytvis tree of one
+    10-frame video with five GT ellipses (native RLEs) against
+    ``engine.evaluate_dataset`` on the seeded model, A/B/C 6 x encodes;
+    ``--train`` (B=2 clips of T=2 at 1024, 2 steps, a state a step),
+    ``--resume`` (iter 2 -> state_3) and ``--eval-only --weights
+    ckpt_final``; ``demo.run`` (VIS and first-frame-mask VOS, rendered with
+    ``--parallel``) writing overlays cv2 reads back; one ``run_vis`` under
+    ``profiling.trace`` and ``StageTimer``.  The CLI's config through
+    ``--opts`` in yacs pair form.  Returns (ok, {path: launches})."""
+    import tempfile
+    import types
+
+    import torch
+
+    from univs_tpu_torch import engine
+    from univs_tpu_torch.data.category_info import TOTAL_CATEGORY_ROWS
+    from univs_tpu_torch.inference.driver import EntityDriver, VOSDriver
+    from univs_tpu_torch.models.univs import UniVSModel, build_model
+    from univs_tpu_torch.prompts.prepare_targets import PrepareTargets
+    from univs_tpu_torch.tools import demo, run_net
+    from univs_tpu_torch.utils import profiling, weights
+    from univs_tpu_torch.utils.checkpoint import load_category_bank, load_params
+    from univs_tpu_torch.utils.synth import synth_blob_video
+
+    phase_t0 = time.perf_counter()
+    card = card_line()
+    env = {"entry": "environment", "cv2": importable("cv2"), "PIL": importable("PIL"),
+           "yaml": importable("yaml"), "card": card}
+    emit(env)
+    if not (env["cv2"] and env["PIL"]):
+        log("entry: the demo and the data layer need cv2 and PIL; one is missing")
+        return False, {}
+    ok, by_path = True, {}
+    (H, W), V = FULL_HW, ENTRY_FRAMES
+    tmp = tempfile.TemporaryDirectory(prefix="chip_entry_")
+    root = tmp.name
+    old_root = os.environ.get("UNIVS_TPU_DATA_ROOT")
+    os.environ["UNIVS_TPU_DATA_ROOT"] = root
+    try:
+        argv_cfg = ["--opts", *ENTRY_OPTS]
+        cfg, _ = run_net.build_cfg(run_net.parse_args(argv_cfg))
+        layers = cfg.pixel_decoder.num_layers
+
+        # -- 1. a full-width reference-named EMA checkpoint ----------------
+        t0 = time.perf_counter()
+        seeded = {}
+        for seed in (0, 1):
+            m = UniVSModel(cfg)
+            weights.init_params(m, seed)
+            seeded[seed] = reference_checkpoint(m.state_dict())
+            del m
+        ckpt = dict(seeded[0])
+        ckpt.update({"teacher." + k: v for k, v in seeded[1].items()})
+        pth = os.path.join(root, "univs_r50_ema.pth")
+        torch.save({"model": ckpt}, pth)
+        n_keys = len(ckpt)
+        del ckpt, seeded
+        fabricate_s = time.perf_counter() - t0
+
+        # -- 2. intake: load_params + build_model, the teacher bit for bit -
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = load_params(pth, cfg)
+        convert_s = time.perf_counter() - t0
+        loaded = build_model(cfg, params, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del params
+        ref_model = build_model(cfg, None, seed=1, device="cuda")
+        got, want = loaded.state_dict(), ref_model.state_dict()
+        same = sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
+        rec = {"entry": "intake", "checkpoint_mb": os.path.getsize(pth) / 2 ** 20,
+               "keys": n_keys,
+               "fabricate_s": fabricate_s, "load_and_convert_s": convert_s,
+               "load_convert_build_s": load_s, "tensors": len(want),
+               "equal_to_seed_1_bit_for_bit": same, "card": card}
+        emit(rec)
+        ok &= same
+        del loaded, got, want
+
+        # -- 3. eval through the CLI against evaluate_dataset -------------
+        frames = synth_blob_video(V, H, W, n_blobs=8, seed=13)
+        masks = moving_ellipses(ENTRY_FAF, V, H, W, seed=13)
+        folder = write_ytvis_tree(root, frames, masks)
+        argv = ["--eval-only", "--weights", pth, "--dataset", ENTRY_DATASET]
+        (text, cli_s), launches = counted(lambda: cli(run_net.main, argv + [
+            "--output", os.path.join(root, "cli")] + argv_cfg))
+        got = json.loads(text.strip().splitlines()[-1])
+        bank = load_category_bank(None, TOTAL_CATEGORY_ROWS, cfg.decoder.clip_cls_emb_dim)
+        cls_slice = PrepareTargets(bank).category_slice(ENTRY_DATASET)
+        t0 = time.perf_counter()
+        want = engine.evaluate_dataset(cfg, ref_model, ENTRY_DATASET, cls_slice,
+                                       output_dir=os.path.join(root, "direct"), device="cuda")
+        direct_s = time.perf_counter() - t0
+        enc = EntityDriver(cfg, ref_model, num_classes=cls_slice.shape[0],
+                           capacity=cfg.inference.max_num_instances).num_window_encodes(V)
+        demo_cfg, _ = run_net.build_cfg(types.SimpleNamespace(
+            backbone="resnet50", num_frames=5, bf16=True, tiny=False))
+        demo_enc = {"vis": EntityDriver(demo_cfg, ref_model, num_classes=40).num_window_encodes(V),
+                    "mask": VOSDriver(demo_cfg, ref_model, capacity=len(ENTRY_FAF)
+                                      ).num_window_encodes(V)}
+        with open(os.path.join(root, "cli", "results.json")) as f:
+            cli_preds = json.load(f)
+        with open(os.path.join(root, "direct", "results.json")) as f:
+            direct_preds = json.load(f)
+        strip = lambda m: {k: v for k, v in m.items() if k != "fps"}
+        rec = {"entry": "run_net --eval-only", "metrics": got, "direct_metrics": want,
+               "same_metrics": strip(got) == strip(want),
+               "same_results_json": cli_preds == direct_preds, "predictions": len(cli_preds),
+               "cli_s": cli_s, "direct_evaluate_dataset_s": direct_s, "frames": V,
+               "launches_ok": check_launches("entry run_net eval", launches,
+                                             expected_launches(enc, layers)),
+               "card": card}
+        emit(rec)
+        ok &= rec["same_metrics"] and rec["same_results_json"] and rec["launches_ok"]
+        by_path["entry run_net eval"] = launches
+        del ref_model
+        torch.cuda.empty_cache()
+
+        # -- 4. train, resume, reload through the CLI ----------------------
+        out = os.path.join(root, "train")
+        train = ["--train", "--weights", pth, "--datasets", f"{ENTRY_DATASET}:1.0",
+                 "--image-size", "1024", "--batch-size", "2", "--num-frames", "2",
+                 "--ckpt-every", "1", "--output", out]
+        with TimedSteps() as steps:
+            (text, train_s), launches = counted(lambda: cli(run_net.main, train + [
+                "--max-iter", "2"] + argv_cfg))
+        event_line = [line for line in text.splitlines() if line.startswith("iter ")]
+        states = sorted(os.listdir(out))
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        finite = all(np.isfinite(v) for r in logged for v in r.values())
+        with TimedSteps() as resume_steps:
+            (text, resume_s), resume_launches = counted(lambda: cli(run_net.main, train + [
+                "--max-iter", "3", "--resume"] + argv_cfg))
+        resumed = "resumed full train state" in text and "(iter 2)" in text
+        (text, reload_s), reload_launches = counted(lambda: cli(run_net.main, [
+            "--eval-only", "--weights", os.path.join(out, "ckpt_final"), "--dataset",
+            ENTRY_DATASET, "--output", os.path.join(root, "final")] + argv_cfg))
+        reload_metrics = json.loads(text.strip().splitlines()[-1])
+        rec = {"entry": "run_net --train / --resume / ckpt_final", "files": states,
+               "state_3": os.path.exists(os.path.join(out, "state_3")),
+               "metrics_jsonl": logged, "losses_finite": finite,
+               "event_writer_line": event_line, "step_s": steps.s, "resume_step_s": resume_steps.s,
+               "train_cli_s": train_s, "resume_cli_s": resume_s, "resumed_at_iter_2": resumed,
+               "reload_eval_s": reload_s, "reload_metrics": reload_metrics,
+               "state_mb": os.path.getsize(os.path.join(out, "state_1")) / 2 ** 20,
+               "launches_ok": all([
+                   check_launches("entry run_net train", launches, expected_launches(2, layers)),
+                   check_launches("entry run_net resume", resume_launches,
+                                  expected_launches(1, layers)),
+                   check_launches("entry run_net eval ckpt_final", reload_launches,
+                                  expected_launches(enc, layers))]),
+               "card": card}
+        emit(rec)
+        ok &= (rec["launches_ok"] and resumed and finite and rec["state_3"]
+               and {"state_1", "state_2", "metrics.jsonl", "ckpt_final"} <= set(states)
+               and len(logged) == 1 and set(reload_metrics) >= {"AP", "fps"})
+        by_path["entry run_net train"] = launches
+        by_path["entry run_net resume"] = resume_launches
+        by_path["entry run_net eval ckpt_final"] = reload_launches
+        torch.cuda.empty_cache()
+
+        # -- 5. demo: VIS and first-frame-mask VOS, --parallel ------------
+        from PIL import Image
+
+        first = np.zeros((H, W), np.uint8)
+        present = [n for n in range(len(ENTRY_FAF)) if masks[n, 0].any()]
+        for i, n in enumerate(present):
+            first[masks[n, 0] > 0] = i + 1
+        Image.fromarray(first).save(os.path.join(root, "first_frame.png"))
+        for mode, extra in (("vis", {}), ("mask", {"mask": os.path.join(root, "first_frame.png")})):
+            path = os.path.join(root, f"demo_{mode}.avi")
+            args = types.SimpleNamespace(
+                input=folder, output=path, weights=pth, bank=None, dataset_ns="ytvis19",
+                backbone="resnet50", score_thres=0.0, tiny=False, max_frames=V, parallel=True,
+                num_render_workers=2, **extra)
+            (text, demo_s), launches = counted(lambda: cli(demo.run, args))
+            n = video_frame_count(path) if os.path.exists(path) else 0
+            rec = {"entry": f"demo {mode}", "overlay": os.path.basename(path),
+                   "bytes": os.path.getsize(path) if os.path.exists(path) else 0,
+                   "frames_read_back": n, "printed": text.strip().splitlines()[-1:],
+                   "demo_s": demo_s, "s_per_frame": demo_s / V,
+                   "launches_ok": check_launches(f"entry demo {mode}", launches,
+                                                 expected_launches(demo_enc[mode], layers)),
+                   "card": card}
+            emit(rec)
+            ok &= rec["launches_ok"] and n == V
+            by_path[f"entry demo {mode}"] = launches
+
+        # -- 6. profiling: one run_vis under trace and StageTimer ---------
+        model = build_model(cfg, load_params(pth, cfg), device="cuda")
+        driver = EntityDriver(cfg, model, num_classes=cls_slice.shape[0],
+                              capacity=cfg.inference.max_num_instances)
+        cls_emb = torch.as_tensor(cls_slice).cuda()
+        video = frames.astype(np.float32)
+        driver.run_vis(video, cls_emb)  # warm-up
+        timer = profiling.StageTimer()
+        trace_dir = os.path.join(root, "trace")
+
+        def profiled():
+            with profiling.trace(trace_dir):
+                with timer.stage("run_vis", sync=cls_emb):
+                    driver.run_vis(video, cls_emb)
+                with timer.stage("encode_window", sync=(cls_emb,)):
+                    driver.encode_window(torch.as_tensor(frames, device="cuda"))
+
+        _, launches = counted(profiled)
+        files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+        size = sum(os.path.getsize(os.path.join(trace_dir, f)) for f in files)
+        rec = {"entry": "profiling", "trace_files": len(files), "trace_bytes": size,
+               "stage_timer": timer.summary().splitlines(),
+               "launches_ok": check_launches("entry profile", launches,
+                                             expected_launches(enc + 1, layers)),
+               "card": card}
+        emit(rec)
+        ok &= rec["launches_ok"] and len(files) == 1 and size > 0
+        by_path["entry profile"] = launches
+        del driver, model
+    finally:
+        if old_root is None:
+            os.environ.pop("UNIVS_TPU_DATA_ROOT", None)
+        else:
+            os.environ["UNIVS_TPU_DATA_ROOT"] = old_root
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+    emit({"entry": "phase", "phase_s": time.perf_counter() - phase_t0, "pass": bool(ok),
+          "card": card})
+    return bool(ok), by_path
+
+
 def main(argv) -> int:
     import torch
 
@@ -3843,6 +4246,17 @@ def main(argv) -> int:
         ok, _ = run_eval_path(build_model(UniVSConfig(dtype="bfloat16"), None, seed=0,
                                           device="cuda"))
         ok &= reference_check_engine()
+        print(card, flush=True)
+        if not ok:
+            log("FAILED")
+            return 1
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if argv == ["entry"]:
+        # weight intake and the entry points alone
+        ok, _ = run_entry_path()
         print(card, flush=True)
         if not ok:
             log("FAILED")
@@ -3918,6 +4332,9 @@ def main(argv) -> int:
     ok &= path_ok
     by_path.update(eval_paths)
     torch.cuda.empty_cache()
+    path_ok, entry_paths = run_entry_path()
+    ok &= path_ok
+    by_path.update(entry_paths)
     ok &= reference_check()
     ok &= reference_check_vss()
     ok &= reference_check_vps()

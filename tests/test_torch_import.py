@@ -164,3 +164,43 @@ def test_cpu_tensors_take_the_plain_laws(monkeypatch):
     assert tuple(mf.shape) == (1, 16, 24, cfg.pixel_decoder.mask_dim)
     assert bool(torch.isfinite(mf).all())
     assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
+
+
+def test_run_net_and_demo_refuse_cpu_without_request(monkeypatch, tmp_path):
+    """The entry points resolve their device before they read a bank, a
+    checkpoint or a dataset."""
+    import types
+
+    from univs_tpu_torch.tools import demo, run_net
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("UNIVS_TPU_DATA_ROOT", str(tmp_path))  # holds no dataset
+    for mode in (["--eval-only", "--dataset", "ytvis_2019_val"],
+                 ["--train", "--datasets", "ytvis_2019_val:1.0"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_net.main(mode + ["--tiny", "--weights", str(tmp_path / "absent.pth"),
+                                 "--output", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        demo.run(types.SimpleNamespace(input=str(tmp_path), output=str(tmp_path / "o.avi"),
+                                       weights=None, bank=None, dataset_ns="ytvis21",
+                                       backbone="resnet50", score_thres=0.3, tiny=True))
+    assert not (tmp_path / "out").exists()
+
+
+def test_yaml_is_imported_only_to_read_a_yaml_file(monkeypatch, tmp_path):
+    """The card's machine may lack PyYAML: ``config_io`` imports it inside
+    ``load_yacs_yaml`` only, so overrides work without it."""
+    import sys
+
+    from univs_tpu_torch import config_io
+
+    tree = ast.parse((PKG / "config_io.py").read_text())
+    assert not any(isinstance(n, (ast.Import, ast.ImportFrom)) and "yaml" in ast.dump(n)
+                   for n in tree.body)
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cfg = config_io.apply_overrides(tiny_test_config(), ["MODEL.MASK_FORMER.NUM_OBJECT_QUERIES",
+                                                         "12"])
+    assert cfg.decoder.num_queries == 12
+    (tmp_path / "a.yaml").write_text("MODEL: {}\n")
+    with pytest.raises(ImportError):
+        config_io.load_yacs_yaml(str(tmp_path / "a.yaml"))

@@ -1,6 +1,12 @@
-"""Ports of the JAX package's Pallas probes of ``tools/`` (the TPU's record
-of which formulation of the MSDA bilinear sum its matrix unit favours).
-Each module keeps its JAX probe's function names and, run as a script,
+"""The port's counterparts of the repository's ``tools/``: the two user
+entry points, and the Pallas probes.
+
+    python -m univs_tpu_torch.tools.run_net --eval-only | --train ...  # train_net.py
+    python -m univs_tpu_torch.tools.demo --input video.mp4 ...         # overlays
+
+The probes are the TPU's record of which formulation of the MSDA bilinear
+sum its matrix unit favours.  Each probe module keeps its JAX probe's
+function names and, run as a script,
 drives its probe's geometry on the card and prints one JSON record per
 level and formulation:
 
