@@ -5,6 +5,7 @@
     python3 chip_smoke.py eval       # the evaluation phase alone (one card)
     python3 chip_smoke.py entry      # weight intake and the entry points alone (one card)
     python3 chip_smoke.py ddp        # data parallelism over NCCL alone (two cards)
+    python3 chip_smoke.py tools      # run_net --train under torchrun and the tools alone
 
 With no arguments it runs every phase, in order (any failure exits
 non-zero):
@@ -181,6 +182,18 @@ non-zero):
               ``YTVISEval`` on either backend; the native and numpy encode
               of a fragmented 640x960 mask; a driver built per video from
               a state_dict against one handed the built model;
+  tools   — ``run_net --train`` as two ``torchrun`` ranks (gloo over
+            cuda:0; ``python -m torch.distributed.run`` over this script's
+            ``run_net_rank``, which writes each rank's launch counts) at
+            the training cell's shape in float32 for 2 steps, then
+            ``--resume`` for 1, against the one-process CLI on the same
+            tree: losses within 1e-5 x max(1, |v|), ``ckpt_final``'s masters
+            within 1e-5 where both share the gradient to 1 %, within two
+            Adam steps elsewhere, the first moment within 1e-2, only rank 0
+            writing; then the ten tools of ``univs_tpu_torch/tools/`` at
+            full width, each call's launches checked
+            (``python3 chip_smoke.py tools`` runs this phase alone;
+            ``ddp`` adds the same CLI run on NCCL over two cards);
   grads   — kernels A, B and C as ``autograd.Function``s (the kernel
             forward, the plain law's VJP backward) against their plain
             laws at the full-width encoder shape of the training batch
@@ -650,18 +663,14 @@ def bound_of(name, x, inputs, out):
     """Least time the card could take for the same work: max(bytes /
     HBM rate, operations / peak rate of their type), each input read once
     and each output written once."""
-    N, Lq, C, M, P, L, D, F = (x["q"].shape[0], x["Lq"], x["C"], x["M"], x["P"], x["L"],
-                               x["D"], x["F"])
+    from univs_tpu_torch.tools.analyze_model import encoder_layer_ops
+
+    N, Lq, C, M, P, L, F = x["q"].shape[0], x["Lq"], x["C"], x["M"], x["P"], x["L"], x["F"]
     byts = nbytes(*inputs, out)
-    if name == "msda_rows":
-        ops = 2.0 * N * Lq * C * (3 * M * L * P)
-        rate = BF16_TENSOR_FLOPS
-    elif name in ("msda_sample", "msda_tent_base"):
-        ops = 2.0 * N * Lq * M * L * P * 4 * D  # 4 corner products and sums per channel
-        rate = F32_FLOPS
-    else:
-        ops = 4.0 * N * Lq * C * F
-        rate = BF16_TENSOR_FLOPS
+    # D samples as A does: 4 corner products and sums per channel
+    ops = encoder_layer_ops(N, Lq, C, M, L, P, F)[
+        "msda_sample" if name == "msda_tent_base" else name]
+    rate = F32_FLOPS if name in ("msda_sample", "msda_tent_base") else BF16_TENSOR_FLOPS
     t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3907,14 +3916,20 @@ def write_ytvis_tree(root: str, frames, masks) -> str:
 
 def cli(main, argv):
     """Run an entry point's ``main(argv)`` in-process: (its stdout, s)."""
+    (_, text), s = timed_cli(main, argv)
+    return text, s
+
+
+def timed_cli(main, argv):
+    """(``main(argv)``'s return value and stdout, s) of an in-process call."""
     import contextlib
     import io
 
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        main(argv)
-    return buf.getvalue(), time.perf_counter() - t0
+        out = main(argv)
+    return (out, buf.getvalue()), time.perf_counter() - t0
 
 
 class TimedSteps:
@@ -4196,6 +4211,437 @@ def run_entry_path():
     return bool(ok), by_path
 
 
+TOOLS_FRAMES = 10
+TOOLS_FAF = (0, 0, 2, 4, 6)
+# the CLI's data-parallel check: the training cell's shape (1024^2, B=2 x
+# T=2) in float32, so that the one-process and two-process masters can be
+# held to the CPU test's float32 tolerances (tests/test_torch_ddp.py):
+# losses within 1e-5 x max(1, |v|), masters within 1e-5, except elements
+# whose gradient the two runs do not share to 1 % (the test exempts its
+# zero-gradient leaves alike): there Adam's normalised step turns the
+# difference into a move of up to a step.  At full width these are many:
+# a rank's one video runs other cuDNN algorithms than the batch of two,
+# and the criterion's discrete picks (the 12,544 uncertain points, the
+# matching) follow rounding, so the first moment differs by ~1e-3 in norm
+# where the losses agree to ~1e-6.  Each such element is held to two steps'
+# reach of the other run's, and the first moment to 1e-2 in norm (the
+# bf16 DDP check's 2e-2, halved).
+CLI_WORLD = 2
+CLI_LOSS_TOL = 1e-5  # x max(1, |v|)
+CLI_PARAM_TOL = 1e-5  # absolute, on the float32 masters
+CLI_SHARED_REL = 1e-2  # |mu_world - mu_one| <= this x |mu_one|: a shared gradient
+CLI_MU_TOL = 1e-2  # ||mu_world - mu_one|| / ||mu_one||
+CLI_TRAIN = ("--train", "--datasets", f"{ENTRY_DATASET}:1.0", "--image-size", "1024",
+             "--batch-size", "2", "--num-frames", "2", "--ckpt-every", "2")
+CLI_OPTS = ("--opts", "dtype=float32")  # last: --opts takes the rest of the line
+BANK_NAMES = 64
+SWEEP_LEVEL = 1  # the 1/16 level (40x60): A, E whole, E at Hw 12 / 16 / 20
+
+
+class DataTree:
+    """A temporary ``ENTRY_DATASET`` tree of one seeded 640x960 video of
+    ``TOOLS_FRAMES`` frames (five moving ellipses as GT), set as
+    ``UNIVS_TPU_DATA_ROOT`` while the ``with`` block runs."""
+
+    def __enter__(self):
+        import tempfile
+
+        from univs_tpu_torch.utils.synth import synth_blob_video
+
+        self._tmp = tempfile.TemporaryDirectory(prefix="chip_tools_")
+        self.root = self._tmp.name
+        self._old = os.environ.get("UNIVS_TPU_DATA_ROOT")
+        os.environ["UNIVS_TPU_DATA_ROOT"] = self.root
+        (H, W), V = FULL_HW, TOOLS_FRAMES
+        self.frames = synth_blob_video(V, H, W, n_blobs=8, seed=17)
+        write_ytvis_tree(self.root, self.frames, moving_ellipses(TOOLS_FAF, V, H, W, seed=17))
+        return self
+
+    def __exit__(self, *exc):
+        if self._old is None:
+            os.environ.pop("UNIVS_TPU_DATA_ROOT", None)
+        else:
+            os.environ["UNIVS_TPU_DATA_ROOT"] = self._old
+        self._tmp.cleanup()
+
+
+def run_net_rank(out_prefix: str, argv) -> int:
+    """One ``torchrun`` rank of ``run_net.main(argv)`` (as ``python -m
+    univs_tpu_torch.tools.run_net`` runs it), its launch counts, train step
+    seconds and stdout written to ``<out_prefix>.<RANK>.json``: the counts
+    of a rank are visible only in its own process."""
+    from univs_tpu_torch.tools import run_net
+
+    with TimedSteps() as steps:
+        (text, s), launches = counted(lambda: cli(run_net.main, argv))
+    rank = int(os.environ["RANK"])
+    with open(f"{out_prefix}.{rank}.json", "w") as f:
+        json.dump({"rank": rank, "stdout": text, "s": s, "step_s": steps.s,
+                   "launches": launches}, f)
+    return 0
+
+
+def torchrun_cli(backend: str, argv, out_prefix: str, device_args=()) -> tuple:
+    """``python -m torch.distributed.run --nproc_per_node 2`` over
+    ``run_net_rank``: (the ranks' records, s of the command)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(CLI_WORLD), "--master_addr", "127.0.0.1",
+           "--master_port", str(_free_port()), os.path.abspath(__file__), "run_net_rank",
+           out_prefix, *argv, "--dist-backend", backend, *device_args, *CLI_OPTS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    s = time.perf_counter() - t0
+    if proc.returncode:
+        log(f"torchrun failed ({proc.returncode}): {proc.stderr[-3000:]}")
+        return None, s
+    ranks = []
+    for r in range(CLI_WORLD):
+        with open(f"{out_prefix}.{r}.json") as f:
+            ranks.append(json.load(f))
+    return ranks, s
+
+
+def run_cli_ddp(backend: str):
+    """``run_net --train`` as two ``torchrun`` ranks (gloo over cuda:0, or
+    NCCL with a card a rank) at the training cell's shape in float32, 2
+    steps, then ``--resume`` for 1, against the one-process CLI on the same
+    tree for 2 steps: the logged losses within 1e-5 x max(1, |v|), the
+    world's ``state_2`` masters within 1e-5 of the one-process
+    ``ckpt_final``, only rank 0 writing and printing, the resume at iter 2,
+    A/B/C 6 a step on every rank.  Returns (ok, {path: launches})."""
+    import torch
+
+    from univs_tpu_torch.config import UniVSConfig
+    from univs_tpu_torch.tools import run_net
+
+    with DataTree() as tree:
+        return _cli_ddp(backend, tree.root, UniVSConfig().pixel_decoder.num_layers, run_net.main)
+
+
+def _cli_ddp(backend: str, root: str, layers: int, run_net_main):
+    import torch
+
+    card = card_line()
+    one, world = os.path.join(root, f"one_{backend}"), os.path.join(root, f"world_{backend}")
+    device_args = ("--device", "cuda:0") if backend == "gloo" else ()
+    with TimedSteps() as steps:
+        (_, one_s), one_launches = counted(lambda: cli(
+            run_net_main, [*CLI_TRAIN, "--max-iter", "2", "--output", one, *CLI_OPTS]))
+    torch.cuda.empty_cache()
+    prefix = os.path.join(root, f"rank_{backend}")
+    ranks, world_s = torchrun_cli(backend, [*CLI_TRAIN, "--max-iter", "2", "--output", world],
+                                  prefix + "_train", device_args)
+    if ranks is not None:  # the world's ckpt_final of step 2, before the resume rewrites it
+        got_final = torch.load(os.path.join(world, "ckpt_final"), weights_only=True)
+    resumed, resume_s = torchrun_cli(backend, [*CLI_TRAIN, "--max-iter", "3", "--resume",
+                                               "--output", world],
+                                     prefix + "_resume", device_args)
+    if ranks is None or resumed is None:
+        emit({"tools": f"run_net --train torchrun {backend}", "pass": False, "card": card})
+        return False, {}
+    with open(os.path.join(one, "metrics.jsonl")) as f:
+        want_log = [json.loads(line) for line in f]
+    with open(os.path.join(world, "metrics.jsonl")) as f:
+        got_log = [json.loads(line) for line in f]
+    loss_err = max((abs(got_log[0][k] - v) / max(1.0, abs(v)) for k, v in want_log[0].items()
+                    if k != "iteration"), default=float("inf"))
+    from univs_tpu_torch.config import UniVSConfig
+
+    want_final = torch.load(os.path.join(one, "ckpt_final"), weights_only=True)
+    agree = master_agreement(
+        want_final["params"], got_final["params"],
+        torch.load(os.path.join(one, "state_2"), weights_only=True)["mu"],
+        torch.load(os.path.join(world, "state_2"), weights_only=True)["mu"],
+        reach=2 * 2 * UniVSConfig().train.lr * 1.01)
+    final = torch.load(os.path.join(world, "ckpt_final"), weights_only=True)
+    moved = max(float((v - got_final["params"][k]).abs().max())
+                for k, v in final["params"].items())
+    per_rank = expected_launches(2, layers)
+    launches = {
+        "tools run_net one process": one_launches,
+        f"tools run_net --train {backend} x2": {k: sum(r["launches"][k] for r in ranks)
+                                                for k in one_launches},
+        f"tools run_net --resume {backend} x2": {k: sum(r["launches"][k] for r in resumed)
+                                                 for k in one_launches},
+    }
+    counts_ok = (check_launches("tools run_net one process", one_launches, per_rank)
+                 and all(check_launches(f"tools run_net --train {backend} rank {r['rank']}",
+                                        r["launches"], per_rank) for r in ranks)
+                 and all(check_launches(f"tools run_net --resume {backend} rank {r['rank']}",
+                                        r["launches"], expected_launches(1, layers))
+                         for r in resumed))
+    files = sorted(os.listdir(world))
+    rec = {"tools": f"run_net --train torchrun {backend}", "world": CLI_WORLD,
+           "dtype": "float32", "height": TRAIN_HW, "width": TRAIN_HW, "batch": 2, "frames": 2,
+           "one_process_step_s": steps.s, "one_process_cli_s": one_s,
+           "rank_step_s": [r["step_s"] for r in ranks],
+           "resume_rank_step_s": [r["step_s"] for r in resumed],
+           "torchrun_s": world_s, "torchrun_resume_s": resume_s,
+           "logged_iterations": [r["iteration"] for r in got_log],
+           "max_rel_loss_err": loss_err, "loss_tol": CLI_LOSS_TOL,
+           "total_loss": [got_log[0]["total_loss"], want_log[0]["total_loss"]],
+           **agree, "resumed_step_moved_max": moved,
+           "steps": [int(want_final["step"]), int(got_final["step"]), int(final["step"])],
+           "files": files,
+           "rank0_printed": bool(ranks[0]["stdout"]), "rank1_silent": not ranks[1]["stdout"]
+           and not resumed[1]["stdout"],
+           "resumed_at_iter_2": "(iter 2)" in resumed[0]["stdout"],
+           "launches_ok": counts_ok, "card": card}
+    rec["pass"] = bool(
+        counts_ok and loss_err <= CLI_LOSS_TOL and agree["masters_pass"]
+        and set(got_log[0]) == set(want_log[0]) and rec["logged_iterations"] == [0]
+        and files == ["ckpt_final", "metrics.jsonl", "state_2"] and rec["steps"] == [2, 2, 3]
+        and rec["rank0_printed"] and rec["rank1_silent"] and rec["resumed_at_iter_2"]
+        and moved > 0)
+    emit(rec)
+    return rec["pass"], launches
+
+
+def master_agreement(want: dict, got: dict, want_mu: dict, got_mu: dict, reach: float) -> dict:
+    """Two runs' float32 masters held to ``CLI_PARAM_TOL`` where their
+    gradient is shared (first moments within ``CLI_SHARED_REL`` of the
+    one-process run's), within ``reach`` elsewhere; the first moments
+    within ``CLI_MU_TOL`` in norm."""
+    law, noise_err, noise, n, dmu2, mu2 = [], 0.0, 0, 0, 0.0, 0.0
+    for k, p in want.items():
+        dp = (got[k] - p).abs()
+        dm = (got_mu[k] - want_mu[k]).abs()
+        is_noise = dm > CLI_SHARED_REL * want_mu[k].abs()
+        n += p.numel()
+        noise += int(is_noise.sum())
+        if bool(is_noise.any()):
+            noise_err = max(noise_err, float(dp[is_noise].max()))
+        law.append((float(dp[~is_noise].max()) if bool((~is_noise).any()) else 0.0, k))
+        dmu2 += float((dm.double() ** 2).sum())
+        mu2 += float((want_mu[k].double() ** 2).sum())
+    law.sort(reverse=True)
+    out = {"param_max_abs_err": law[0][0], "worst_params": [[k, e] for e, k in law[:3]],
+           "param_tol": CLI_PARAM_TOL, "unshared_elements": noise, "elements": n,
+           "unshared_share": noise / n, "unshared_param_max_abs_err": noise_err,
+           "unshared_reach": reach,
+           "mu_rel_err": (dmu2 / max(mu2, 1e-300)) ** 0.5, "mu_tol": CLI_MU_TOL}
+    out["masters_pass"] = bool(law[0][0] <= CLI_PARAM_TOL and noise_err <= reach
+                               and out["mu_rel_err"] <= CLI_MU_TOL)
+    return out
+
+
+def tool_call(label: str, main, argv, expected: dict, by_path: dict, card: str):
+    """``main(argv)`` of a tool in-process with the launch counts set to 0
+    just before: (its return value, stdout, s, launches ok)."""
+    (out, s), launches = counted(lambda: timed_cli(main, argv))
+    by_path[f"tools {label}"] = launches
+    ok = check_launches(f"tools {label}", launches, expected)
+    return out, s, ok
+
+
+def run_tools_path():
+    """The ten tools and ``run_net --train`` under ``torchrun`` on the card
+    (UniVS-R50, seeded weights, bf16 unless stated): the CLI's two-rank
+    data-parallel run against the one-process run (``run_cli_ddp``);
+    ``extract_class_embeddings`` (the seeded RN50x4 tower, 64 names, ms a
+    name and the 3,938-row bank extrapolated); ``bench_serving`` at B 1, 2
+    and 4 (640x960, V=30, a warm-up and one timed run a B);
+    ``bench_occupancy`` (floored and standard gates, a warm-up and one
+    pipelined video each); ``profile_stages``;
+    ``profile_gather``; ``analyze_model`` (parameters equal to the model's
+    state_dict numel, the counter's FLOPs beside A/B/C's analytic part);
+    ``probe_tent_sweep`` on the 1/16 level (A, E whole and windowed);
+    ``semantic_feature_to_mask`` on a ``SemanticExtractionDriver`` run and
+    ``show_results`` on a gates-open ``run_vis``, their PNGs and overlays
+    read back by cv2.  Every call's launches against its expectation.
+    Returns (ok, {path: launches})."""
+    import math
+
+    import cv2
+    import torch
+
+    from univs_tpu_torch.config import UniVSConfig
+    from univs_tpu_torch.inference.driver import EntityDriver, vis_results_to_ytvis_json
+    from univs_tpu_torch.inference.fast_vis import SemanticExtractionDriver
+    from univs_tpu_torch.inference.serving import BatchedVISServer
+    from univs_tpu_torch.models.univs import build_model
+    from univs_tpu_torch.tools import (analyze_model, bench_occupancy, bench_serving,
+                                       extract_class_embeddings, probe_tent_sweep,
+                                       profile_gather, profile_stages, semantic_feature_to_mask,
+                                       show_results)
+
+    phase_t0 = time.perf_counter()
+    card = card_line()
+    ok, by_path = run_cli_ddp("gloo")
+    torch.cuda.empty_cache()
+    cfg = UniVSConfig(dtype="bfloat16")
+    layers = cfg.pixel_decoder.num_layers
+    (H, W), V = FULL_HW, TOOLS_FRAMES
+    with DataTree() as tree:
+        root, frames = tree.root, tree.frames
+        masters = seeded_masters(cfg)
+        weights_path = os.path.join(root, "univs_r50.pt")
+        torch.save(masters, weights_path)
+        model = build_model(cfg, masters, device="cuda")
+        del masters
+        # the schedules of the benches' drivers (the server encodes a window
+        # when i + T passes it, EntityDriver clamps the tail)
+        srv_enc = BatchedVISServer(cfg, model, num_classes=40, capacity=40,
+                                   batch_size=1).num_window_encodes(MAIN_PATH_FRAMES)
+        drv_enc = EntityDriver(cfg, model, num_classes=40,
+                               capacity=40).num_window_encodes(MAIN_PATH_FRAMES)
+
+        # -- extract_class_embeddings ------------------------------------
+        from univs_tpu_torch.data.category_info import COMBINED_DATASETS_CATEGORY_INFO
+
+        # category_info holds row counts, not names: the bank's first rows
+        # named by namespace and row (every name is 81 x 77 tokens alike)
+        names = [f"{ns} {i}" for ns, (n, _) in COMBINED_DATASETS_CATEGORY_INFO.items()
+                 for i in range(n)][:BANK_NAMES]
+        names_path = os.path.join(root, "names.txt")
+        with open(names_path, "w") as f:
+            f.write("\n".join(names) + "\n")
+        argv = ["--names", names_path, "--out", os.path.join(root, "bank.npy")]
+        (bank, text), s, lok = tool_call("extract_class_embeddings", extract_class_embeddings.main,
+                                         argv, expected_launches(0), by_path, card)
+        # a second call, timed alone: the first builds the tower
+        torch.cuda.synchronize()
+        tower = extract_class_embeddings.text_encoder(None, "cuda")
+        t0 = time.perf_counter()
+        extract_class_embeddings.extract(tower, names)
+        ms = (time.perf_counter() - t0) * 1e3
+        del tower
+        rec = {"tools": "extract_class_embeddings", "names": len(names),
+               "shape": list(bank.shape), "finite": bool(np.isfinite(bank).all()),
+               "printed": text.splitlines(), "cli_s": s, "ms_per_name": ms / len(names),
+               "bank_3938_s_extrapolated": ms / len(names) * 3938 / 1e3,
+               "launches_ok": lok, "card": card}
+        rec["pass"] = bool(lok and rec["finite"] and bank.shape == (BANK_NAMES, 640))
+        emit(rec)
+        ok &= rec["pass"]
+
+        # -- bench_serving at B 1, 2, 4 ----------------------------------
+        iters = 1
+        Bs = (1, 2, 4)
+        (rows, text), s, lok = tool_call(
+            "bench_serving", bench_serving.main, [*map(str, Bs), "--iters", str(iters)],
+            expected_launches(len(Bs) * (1 + iters) * srv_enc, layers), by_path, card)
+        rec = {"tools": "bench_serving", "rows": rows, "frames": MAIN_PATH_FRAMES,
+               "height": H, "width": W, "timed_runs": iters, "cli_s": s, "launches_ok": lok,
+               "card": card}
+        rec["pass"] = bool(lok and [r["B"] for r in rows] == list(Bs)
+                           and all(r["fps"] for r in rows))
+        emit(rec)
+        ok &= rec["pass"]
+        torch.cuda.empty_cache()
+
+        # -- bench_occupancy ---------------------------------------------
+        (out, text), s, lok = tool_call(
+            "bench_occupancy", bench_occupancy.main, ["--iters", str(iters)],
+            expected_launches(2 * (1 + iters) * drv_enc, layers), by_path, card)
+        rec = dict(out, tools="bench_occupancy", printed=text.splitlines(), cli_s=s,
+                   launches_ok=lok, card=card)
+        rec["pass"] = bool(lok and out["entities"] > out["entities_standard"])
+        emit(rec)
+        ok &= rec["pass"]
+
+        # -- profile_stages / profile_gather -----------------------------
+        (out, text), s, lok = tool_call("profile_stages", profile_stages.main, [],
+                                        expected_launches(2 * 6, layers), by_path, card)
+        rec = dict(out, tools="profile_stages", printed=text.splitlines(), cli_s=s,
+                   launches_ok=lok, card=card)
+        rec["pass"] = bool(lok)
+        emit(rec)
+        ok &= rec["pass"]
+        (out, text), s, lok = tool_call(
+            "profile_gather", profile_gather.main, [],
+            expected_launches(0, 0, msda_sample=2 * 7, msda_rows=7), by_path, card)
+        rec = dict(out, tools="profile_gather", printed=text.splitlines(), cli_s=s,
+                   launches_ok=lok, card=card)
+        rec["pass"] = bool(lok)
+        emit(rec)
+        ok &= rec["pass"]
+
+        # -- analyze_model -----------------------------------------------
+        (out, text), s, lok = tool_call("analyze_model", analyze_model.main, [],
+                                        expected_launches(1, layers), by_path, card)
+        numel = sum(t.numel() for t in build_model(UniVSConfig(), None,
+                                                   device="cpu").state_dict().values())
+        rec = dict(out, tools="analyze_model", printed=text.splitlines(), cli_s=s,
+                   state_dict_numel=numel, launches_ok=lok, card=card)
+        rec["pass"] = bool(lok and out["total_params"] == numel and out["kernels_added"])
+        emit(rec)
+        ok &= rec["pass"]
+
+        # -- probe_tent_sweep, one level ---------------------------------
+        calls = 1 + 2 + 10  # measure: one checked call, WARMUP + ITERS timed
+        n_plane = 1 + len(probe_tent_sweep.WINDOWS[SWEEP_LEVEL])
+        (records, text), s, lok = tool_call(
+            "probe_tent_sweep", probe_tent_sweep.main, ["--levels", str(SWEEP_LEVEL)],
+            expected_launches(0, 0, msda_sample=calls, msda_tent_plane=n_plane * calls),
+            by_path, card)
+        rec = {"tools": "probe_tent_sweep", "records": records, "cli_s": s,
+               "launches_ok": lok, "card": card}
+        rec["pass"] = bool(lok and all(r["pass"] for r in records))
+        emit(rec)
+        ok &= rec["pass"]
+        torch.cuda.empty_cache()
+
+        # -- semantic_feature_to_mask on an extraction run ---------------
+        bank40 = np.random.RandomState(3).randn(40, cfg.decoder.clip_cls_emb_dim).astype(np.float32)
+        ext = SemanticExtractionDriver(cfg, model)
+        (toks, mfs), launches = counted(lambda: ext.run(frames, torch.as_tensor(bank40).cuda()))
+        by_path["tools semantic extraction run"] = launches
+        lok = check_launches("tools semantic extraction run", launches,
+                             expected_launches(math.ceil(V / cfg.inference.num_frames), layers))
+        npz = os.path.join(root, "features.npz")
+        np.savez(npz, obj_tokens=toks, mask_feats=mfs, cls_emb=bank40)
+        sem_out = os.path.join(root, "semantic")
+        (summary, text), s, lok2 = tool_call(
+            "semantic_feature_to_mask", semantic_feature_to_mask.main,
+            [npz, "--weights", weights_path, "--all", "--out", sem_out],
+            expected_launches(0), by_path, card)
+        pngs = sorted(f for f in os.listdir(sem_out) if f.endswith(".png"))
+        grids = [cv2.imread(os.path.join(sem_out, f), cv2.IMREAD_GRAYSCALE) for f in pngs]
+        Q = cfg.decoder.num_queries
+        rec = {"tools": "semantic_feature_to_mask", "frames": V, "kept": len(
+            summary["kept_queries"]), "shape": summary["shape"], "pngs": len(pngs),
+            "png_shapes": sorted({tuple(g.shape) for g in grids if g is not None}),
+            "cli_s": s, "launches_ok": lok and lok2, "card": card}
+        rec["pass"] = bool(lok and lok2 and len(pngs) == math.ceil(Q / 10)
+                           and all(g is not None for g in grids)
+                           and summary["shape"] == [Q, V, H // 32, W // 32])
+        emit(rec)
+        ok &= rec["pass"]
+
+        # -- show_results on a run_vis -----------------------------------
+        open_cfg = with_gates_open(cfg)
+        driver = EntityDriver(open_cfg, model, num_classes=40,
+                              capacity=open_cfg.inference.max_num_instances)
+        ents, launches = counted(lambda: driver.run_vis(frames, torch.as_tensor(bank40).cuda()))
+        by_path["tools show_results run_vis"] = launches
+        lok = check_launches("tools show_results run_vis", launches,
+                             expected_launches(driver.num_window_encodes(V), layers))
+        preds = vis_results_to_ytvis_json(1, V, H, W, ents, apply_cls_thresh=0.0,
+                                          topk_per_video=5)
+        results_path = os.path.join(root, "results.json")
+        with open(results_path, "w") as f:
+            json.dump(preds, f)
+        viz = os.path.join(root, "viz")
+        (written, text), s, lok2 = tool_call(
+            "show_results", show_results.main,
+            ["--results", results_path, "--dataset", ENTRY_DATASET, "--output", viz,
+             "--conf", "0.0"], expected_launches(0), by_path, card)
+        n = video_frame_count(written[0][0]) if written else 0
+        rec = {"tools": "show_results", "entities": len(ents), "predictions": len(preds),
+               "written": [[os.path.basename(p), f, k] for p, f, k in written],
+               "frames_read_back": n, "printed": text.splitlines(), "cli_s": s,
+               "launches_ok": lok and lok2, "card": card}
+        rec["pass"] = bool(lok and lok2 and len(ents) > 0 and n == V)
+        emit(rec)
+        ok &= rec["pass"]
+        del driver, ext, model
+    torch.cuda.empty_cache()
+    emit({"tools": "phase", "phase_s": time.perf_counter() - phase_t0, "pass": bool(ok),
+          "card": card})
+    return bool(ok), by_path
+
+
 def main(argv) -> int:
     import torch
 
@@ -4208,6 +4654,10 @@ def main(argv) -> int:
     except ImportError as e:
         log(f"univs_tpu_torch is not importable from here: {e}")
         return 3
+
+    if argv[:1] == ["run_net_rank"]:
+        # one torchrun rank of the tools phase's data-parallel CLI run
+        return run_net_rank(argv[1], argv[2:])
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -4229,6 +4679,8 @@ def main(argv) -> int:
             log(f"ddp needs two cards, {torch.cuda.device_count()} visible")
             return 1
         ok, _ = run_ddp_path("nccl")
+        cli_ok, _ = run_cli_ddp("nccl")
+        ok &= cli_ok
         print(card, flush=True)
         if not ok:
             log("FAILED")
@@ -4246,6 +4698,17 @@ def main(argv) -> int:
         ok, _ = run_eval_path(build_model(UniVSConfig(dtype="bfloat16"), None, seed=0,
                                           device="cuda"))
         ok &= reference_check_engine()
+        print(card, flush=True)
+        if not ok:
+            log("FAILED")
+            return 1
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if argv == ["tools"]:
+        # run_net --train under torchrun and the ten tools alone
+        ok, _ = run_tools_path()
         print(card, flush=True)
         if not ok:
             log("FAILED")
@@ -4335,6 +4798,10 @@ def main(argv) -> int:
     path_ok, entry_paths = run_entry_path()
     ok &= path_ok
     by_path.update(entry_paths)
+    torch.cuda.empty_cache()
+    path_ok, tools_paths = run_tools_path()
+    ok &= path_ok
+    by_path.update(tools_paths)
     ok &= reference_check()
     ok &= reference_check_vss()
     ok &= reference_check_vps()

@@ -67,8 +67,9 @@ class BatchedVISServer:
         return self.driver.num_window_encodes(V)
 
     @torch.no_grad()
-    def _stream_batch(self, frames_b: np.ndarray, lengths: Sequence[int], cls_emb) -> Dict:
-        """frames_b [B, V, H, W, 3] (tail frames repeated per video) -> per
+    def _stream_batch(self, frames_b, lengths: Sequence[int], cls_emb) -> Dict:
+        """frames_b [B, V, H, W, 3] (tail frames repeated per video; host or
+        device) -> per
         video the fp16 windows, their starts, score snapshots and the
         final pool.  The driver's clip loop over the B videos: one window
         encode for the batch, each video's clip step on its own pool at
@@ -114,6 +115,18 @@ class BatchedVISServer:
         lengths = [v.shape[0] for v in videos]
         V = max(lengths)
         frames_b = np.stack([v[np.minimum(np.arange(V), v.shape[0] - 1)] for v in videos])
+        return self.run_frames(frames_b, lengths, cls_emb, image_sizes, out_sizes)
+
+    def run_frames(self, frames_b, lengths: Sequence[int], cls_emb,
+                   image_sizes: Optional[Sequence] = None,
+                   out_sizes: Optional[Sequence] = None) -> List[List[Dict]]:
+        """``run_vis`` on the batch already stacked: ``frames_b`` [B, V, H, W,
+        3] (each video's tail frames repeated, as ``run_vis`` pads them), a
+        host array or a tensor already on the device (served frames are
+        uploaded ahead of the compute), and each video's true length."""
+        B, _, H, W = frames_b.shape[:4]
+        if B != self.batch_size:
+            raise ValueError(f"run_frames takes batch_size={self.batch_size} videos, got {B}")
         h = self._stream_batch(frames_b, lengths, cls_emb)
         out = []
         with torch.no_grad():

@@ -38,6 +38,7 @@ default; the reference has no counterpart).
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -136,18 +137,94 @@ class BatchShard:
 
 
 def init_distributed(backend: str = "nccl", init_method: Optional[str] = None,
-                     rank: Optional[int] = None, world_size: Optional[int] = None):
+                     rank: Optional[int] = None, world_size: Optional[int] = None,
+                     device: Optional[torch.device] = None):
     """Join the process group (the counterpart of ``init_multihost``):
     ``init_method`` 'tcp://host:port' with ``rank`` and ``world_size``,
     or None for the env rendezvous (MASTER_ADDR / MASTER_PORT / RANK /
     WORLD_SIZE, as ``torchrun`` sets them).  On NCCL each process takes
-    the card of its rank (modulo the cards visible).  Returns the
-    default group."""
+    ``device``, or the card of its rank (modulo the cards visible) when
+    none is given.  Returns the default group."""
+    if backend == "nccl" and device is not None:
+        torch.cuda.set_device(device)
     kw = {} if rank is None else dict(rank=rank, world_size=world_size)
     dist.init_process_group(backend, init_method=init_method or "env://", **kw)
-    if backend == "nccl":
+    if backend == "nccl" and device is None:
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     return dist.group.WORLD
+
+
+BACKENDS = ("nccl", "gloo")
+
+
+@dataclass(frozen=True)
+class World:
+    """One process's place in the data-parallel world of an entry point:
+    its ``rank`` of ``size``, its ``device``, the ``backend`` and ``group``
+    (None in a world of one, where no process group exists)."""
+
+    rank: int
+    size: int
+    device: torch.device
+    backend: Optional[str] = None
+    group: Any = None
+
+    @property
+    def distributed(self) -> bool:
+        return self.group is not None
+
+    def close(self) -> None:
+        """Leave the process group (nothing in a world of one)."""
+        if self.distributed:
+            dist.destroy_process_group()
+
+
+def rank_device(device_arg=None, local_rank: int = 0) -> torch.device:
+    """A rank's device: ``cuda:(local_rank % cards)`` for None or a bare
+    'cuda' (raises without a card), anything else as given ('cpu' is how
+    tests ask for the CPU)."""
+    from univs_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device_arg)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+    return dev
+
+
+def init_from_env(device_arg=None, backend: Optional[str] = None,
+                  environ: Optional[dict] = None) -> World:
+    """The world ``torchrun`` describes (RANK / WORLD_SIZE / LOCAL_RANK /
+    LOCAL_WORLD_SIZE, the env rendezvous): the counterpart of
+    ``init_multihost`` + ``make_mesh``'s data axis for an entry point.
+    Without WORLD_SIZE it is a world of one on ``device_arg``'s device, and
+    no process group is made.
+
+    ``backend`` (``--dist-backend``): None takes NCCL on the card and gloo
+    on the CPU, the one backend each can use.  NCCL needs a card of its
+    own for every rank of a host: ranks that share one (more local ranks
+    than cards, or one card named for all) are refused unless gloo is asked
+    for, so the backend never changes behind the caller's back."""
+    env = os.environ if environ is None else environ
+    if "WORLD_SIZE" not in env:
+        return World(0, 1, rank_device(device_arg))
+    rank, size = int(env["RANK"]), int(env["WORLD_SIZE"])
+    local_rank = int(env.get("LOCAL_RANK", rank))
+    local_size = int(env.get("LOCAL_WORLD_SIZE", size))
+    device = rank_device(device_arg, local_rank)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend not in BACKENDS:
+        raise ValueError(f"--dist-backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "nccl":
+        shared = (device.type != "cuda" or local_size > torch.cuda.device_count()
+                  or (device_arg is not None and torch.device(device_arg).index is not None
+                      and local_size > 1))
+        if shared:
+            raise ValueError(
+                f"NCCL needs one card a rank: {local_size} local ranks on {device}; "
+                "pass --dist-backend gloo to share it")
+    group = init_distributed(backend, None, device=device)
+    return World(rank, size, device, backend, group)
 
 
 def shard_slice(total: int, rank: int, world_size: int) -> slice:

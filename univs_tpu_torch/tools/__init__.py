@@ -1,8 +1,24 @@
-"""The port's counterparts of the repository's ``tools/``: the two user
-entry points, and the Pallas probes.
+"""The port's counterparts of the repository's ``tools/``: the user entry
+points, the measurement tools and the Pallas probes.
 
     python -m univs_tpu_torch.tools.run_net --eval-only | --train ...  # train_net.py
+    torchrun --nproc_per_node N -m univs_tpu_torch.tools.run_net --train ...
     python -m univs_tpu_torch.tools.demo --input video.mp4 ...         # overlays
+    python -m univs_tpu_torch.tools.extract_class_embeddings --names names.txt ...
+    python -m univs_tpu_torch.tools.semantic_feature_to_mask features.npz --weights ...
+    python -m univs_tpu_torch.tools.show_results --results results.json ...
+    python -m univs_tpu_torch.tools.validate_datasets [--parse]
+    python -m univs_tpu_torch.tools.analyze_model [--backbone resnet50]
+    python -m univs_tpu_torch.tools.bench_serving [B ...]     # BatchedVISServer
+    python -m univs_tpu_torch.tools.bench_occupancy           # EntityDriver, pool filled
+    python -m univs_tpu_torch.tools.profile_stages            # backbone / encode / forward
+    python -m univs_tpu_torch.tools.profile_gather            # pixel-decoder pieces
+    python -m univs_tpu_torch.tools.probe_tent_sweep          # A per level, E's window sweep
+
+Each runs on the card unless ``--device cpu`` is given (raises without a
+card), at the size its flags give: none of them picks a smaller run or the
+CPU because no card is present.  Times on the card are CUDA events after a
+synchronise (``stage_ms``).
 
 The probes are the TPU's record of which formulation of the MSDA bilinear
 sum its matrix unit favours.  Each probe module keeps its JAX probe's
@@ -31,6 +47,7 @@ raises, and nothing falls back to a plain version or to the CPU.
 from __future__ import annotations
 
 import json
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -61,6 +78,20 @@ def time_ms(fn: Callable, device, iters: int = ITERS, warmup: int = WARMUP) -> O
     b.record()
     torch.cuda.synchronize(device)
     return a.elapsed_time(b) / iters
+
+
+def stage_ms(fn: Callable, device, iters: int = 5, warmup: int = 1) -> float:
+    """Mean ms per call of ``fn``: CUDA events over ``iters`` calls after
+    ``warmup`` and a synchronise on the card; the host clock on the CPU."""
+    device = torch.device(device)
+    for _ in range(warmup):
+        fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    return time_ms(fn, device, iters, 0)
 
 
 def loc_from_qmajor(rows: torch.Tensor, RQ: int, M: int, P: int) -> torch.Tensor:

@@ -12,9 +12,18 @@ arguments and ``--device``).
         --datasets ytvis_2021_train:0.6,coco_panoptic_train:0.4 \\
         --batch-size 8 --max-iter 10000 --output out/
 
+    # the same global batch over two processes, one card each
+    torchrun --nproc_per_node 2 -m univs_tpu_torch.tools.run_net --train \\
+        --datasets ytvis_2021_train:1.0 --batch-size 8 --output out/
+
 Runs on the card unless ``--device cpu`` is given (and raises without a
-card).  One process on one card; the JAX tool's ``("data", "model")`` mesh
-has no counterpart here (``parallel/ddp.py`` is the port's data axis).
+card).  Under ``torchrun`` (WORLD_SIZE set) ``--train`` is data parallel
+over the processes (``parallel/ddp.py``, the port's counterpart of the JAX
+tool's ``make_mesh()`` data axis): ``--batch-size`` is the global batch,
+split evenly over the ranks, and the state advances as one process's on
+the whole batch.  Each rank takes ``cuda:(LOCAL_RANK % cards)``; the
+backend is ``--dist-backend`` (NCCL on the card, gloo on the CPU or for
+ranks that share a card).  Evaluation runs in one process.
 Reference entry point: train_net.py.
 """
 
@@ -71,8 +80,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         "resume_or_load, train_net.py:377-393)")
     p.add_argument("--ckpt-every", type=int, default=1000)
     p.add_argument("--device", type=str, default=None,
-                   help="torch device; the card when absent (raises without one), "
-                        "'cpu' to run on the CPU")
+                   help="torch device; the card when absent (raises without one; "
+                        "cuda:LOCAL_RANK under torchrun), 'cpu' to run on the CPU")
+    p.add_argument("--dist-backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under torchrun: NCCL on the card and "
+                        "gloo on the CPU when absent; gloo for ranks that share a card")
     return p.parse_args(argv)
 
 
@@ -207,9 +219,31 @@ def evaluate(args, cfg, bank, device) -> Dict[str, float]:
     )
 
 
-def train(args, cfg, bank, device) -> None:
+def agreed_start(start_it: int, world) -> int:
+    """The resumed step, the same on every rank (raises if the ranks read
+    different checkpoints)."""
+    if not world.distributed:
+        return start_it
+    import torch
+    import torch.distributed as dist
+
+    both = torch.tensor([start_it, -start_it], dtype=torch.int64, device=world.device)
+    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=world.group)
+    hi, lo = int(both[0]), -int(both[1])
+    if hi != lo:
+        raise RuntimeError(f"--resume: the ranks resumed at iterations {lo} to {hi}")
+    return hi
+
+
+def train(args, cfg, bank, world) -> None:
     """--train: detection-prompt training on the --datasets mixture,
-    ``state_<it>`` every --ckpt-every iterations, ``ckpt_final`` at the end."""
+    ``state_<it>`` every --ckpt-every iterations, ``ckpt_final`` at the end.
+
+    In a world of several processes every rank builds the same loaders
+    with the same seeds, so it draws (and decodes) the same global batch,
+    keeps its videos (``ddp.shard_batch``) and steps with the same key;
+    only rank 0 writes ``metrics.jsonl``, the states and ``ckpt_final``,
+    and prints."""
     from univs_tpu_torch.data.datasets import load_dataset
     from univs_tpu_torch.data.loader import CombinedLoader, collate_train_batch, dataset_iterator
     from univs_tpu_torch.data.mapper import TrainMapperConfig, TrainVideoMapper
@@ -221,6 +255,13 @@ def train(args, cfg, bank, device) -> None:
     from univs_tpu_torch.utils.draws import make_key
     from univs_tpu_torch.utils.events import EventWriter
 
+    from univs_tpu_torch.parallel import ddp
+
+    if args.batch_size % world.size:
+        raise ValueError(f"--batch-size {args.batch_size} does not split over {world.size} "
+                         "processes: the global batch is sharded evenly, as the JAX tool's "
+                         "data axis")
+    device, lead = world.device, world.rank == 0
     # float32 masters: the checkpoint's, or the seeded init's before the
     # working model rounds it to the compute dtype
     params = load_params(args.weights, cfg) if args.weights else initial_params(cfg, args.seed)
@@ -249,25 +290,32 @@ def train(args, cfg, bank, device) -> None:
         if latest:
             state = load_checkpoint(latest, model)
             start_it = int(state.step)
-            print(f"resumed full train state from {latest} (iter {start_it})")
-    step = make_train_step(cfg, model, task="detection")
+            if lead:
+                print(f"resumed full train state from {latest} (iter {start_it})")
+    start_it = agreed_start(start_it, world)
+    if world.distributed:
+        step = ddp.make_train_step(cfg, model, task="detection", group=world.group)
+    else:
+        step = make_train_step(cfg, model, task="detection")
     key = make_key(args.seed, device=device)
-    events = EventWriter(args.output, print_every=20)
+    events = EventWriter(args.output, print_every=20) if lead else None
     for it in range(start_it, args.max_iter):
-        batch = next(loader).to(device)
+        batch = ddp.shard_batch(next(loader), world.rank, world.size).to(device)
         state, logged = step(state, batch, key)
-        if it % 20 == 0:  # fetch scalars at the log cadence only
+        if lead and it % 20 == 0:  # fetch scalars at the log cadence only
             events.log(it, {k: float(v) for k, v in logged.items()})
-        if (it + 1) % args.ckpt_every == 0:
+        if lead and (it + 1) % args.ckpt_every == 0:
             # full state (params + optimizer + EMA + step) so --resume
             # restarts exactly; eval loads ckpt_final
             save_checkpoint(os.path.join(args.output, f"state_{it + 1}"), state)
-    events.close()
-    save_params(os.path.join(args.output, "ckpt_final"), state)
+    if lead:
+        events.close()
+        save_params(os.path.join(args.output, "ckpt_final"), state)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     from univs_tpu_torch.data.category_info import TOTAL_CATEGORY_ROWS
+    from univs_tpu_torch.parallel import ddp
     from univs_tpu_torch.utils.checkpoint import load_category_bank
     from univs_tpu_torch.utils.device import resolve_device
 
@@ -277,12 +325,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if not (args.eval_only or args.train):
         print("specify --eval-only or --train")
         return
-    device = resolve_device(args.device)
-    bank = load_category_bank(args.bank, TOTAL_CATEGORY_ROWS, cfg.decoder.clip_cls_emb_dim)
+    load_bank = lambda: load_category_bank(args.bank, TOTAL_CATEGORY_ROWS,
+                                           cfg.decoder.clip_cls_emb_dim)
     if args.eval_only:
-        print(json.dumps(evaluate(args, cfg, bank, device)))
+        device = resolve_device(args.device)
+        print(json.dumps(evaluate(args, cfg, load_bank(), device)))
         return
-    train(args, cfg, bank, device)
+    world = ddp.init_from_env(args.device, args.dist_backend)
+    try:
+        train(args, cfg, load_bank(), world)
+    finally:
+        world.close()
 
 
 if __name__ == "__main__":

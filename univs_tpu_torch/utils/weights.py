@@ -167,13 +167,16 @@ def load_state_dict_strict(model: nn.Module, state: Mapping) -> None:
 
 
 def _truncated_normal_(w: torch.Tensor, g: torch.Generator, std: float) -> None:
-    """Normal samples redrawn until within +-2, times ``std``."""
+    """Normal samples redrawn until within +-2, times ``std``: each round
+    redraws the samples still out of range, in flat order (only a
+    redrawn sample can be out of range in the next round)."""
     x = torch.randn(w.shape, generator=g)
-    while True:
-        bad = x.abs() > 2.0
-        if not bad.any():
-            break
-        x[bad] = torch.randn(int(bad.sum()), generator=g)
+    flat = x.view(-1)
+    idx = torch.nonzero(flat.abs() > 2.0).squeeze(1)
+    while idx.numel():
+        redraw = torch.randn(idx.numel(), generator=g)
+        flat[idx] = redraw
+        idx = idx[redraw.abs() > 2.0]
     w.copy_(x * std)
 
 
