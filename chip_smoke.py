@@ -4,7 +4,7 @@
     python3 chip_smoke.py pipeline   # the pipelining phase alone (two cards)
     python3 chip_smoke.py eval       # the evaluation phase alone (one card)
     python3 chip_smoke.py entry      # weight intake and the entry points alone (one card)
-    python3 chip_smoke.py ddp        # data parallelism over NCCL alone (two cards)
+    python3 chip_smoke.py ddp        # data parallelism and the frame group over NCCL (2 or 4 cards)
     python3 chip_smoke.py tools      # run_net --train under torchrun and the tools alone
     python3 chip_smoke.py probes     # the 18 measurement probes alone
 
@@ -148,6 +148,14 @@ non-zero):
               step and all-reduce ms, A/B/C 6 a rank (``python3
               chip_smoke.py ddp`` runs it alone on NCCL over cuda:0 and
               cuda:1, for a machine with two cards);
+            * the frame group (``parallel/mesh.py``'s model axis): the same
+              one-process step held against two gloo processes on cuda:0
+              as a (data=1, model=2) layout, each rank encoding its one
+              frame of each of the 2 clips and gathering the clip for the
+              decoder, with the same tolerances, the ranks' parameters
+              identical and A/B/C 6 a rank; each rank's step split beside
+              the one process's (``ddp`` runs it on NCCL over 2 cards, and
+              as (data=2, model=2) over 4 when 4 are visible);
             * activation checkpointing: one detection step of UniVS Swin-L
               (window 12) without and with ``swin_use_checkpoint`` +
               ``remat_heads``, and of R50 without and with
@@ -3000,43 +3008,49 @@ def run_remat_paths():
     return bool(ok), by_path
 
 
-def _ddp_worker(rank, backend, port, out_dir):
+def _ddp_worker(rank, backend, port, out_dir, world=DDP_WORLD, model_parallel=None):
     """One rank of the data-parallel check: the R50 detection step on its
-    video of the B=2 batch, from the seeded masters and the same key as
+    share of the B=2 batch, from the seeded masters and the same key as
     the one-process step; writes its losses, first moment, params,
-    launches and the second step's ms split to ``out_dir``."""
+    launches and the second step's ms split to ``out_dir``.  With
+    ``model_parallel``, a rank of ``make_mesh(model_parallel)``: its data
+    index's videos, its frames of each clip."""
     import torch
 
     from univs_tpu_torch.config import UniVSConfig
     from univs_tpu_torch.models.univs import build_model
     from univs_tpu_torch.ops import kernels
     from univs_tpu_torch.parallel import ddp
+    from univs_tpu_torch.parallel.mesh import frame_slice, make_mesh
     from univs_tpu_torch.parallel.train_state import EVENTS, create_train_state
     from univs_tpu_torch.utils.draws import make_key
 
     dev = torch.device("cuda", rank if backend == "nccl" else 0)
     torch.cuda.set_device(dev)
-    ddp.init_distributed(backend, f"tcp://127.0.0.1:{port}", rank, DDP_WORLD)
+    ddp.init_distributed(backend, f"tcp://127.0.0.1:{port}", rank, world)
     try:
+        mesh = None if model_parallel is None else make_mesh(model_parallel)
         cfg = UniVSConfig(dtype="bfloat16")
         masters = seeded_masters(cfg)
         model = build_model(cfg, masters, device=dev)
         state = create_train_state(cfg, model, masters)
         del masters
-        batch = ddp.shard_batch(full_train_batch(cfg, "detection", seed=11), rank,
-                                DDP_WORLD).to(dev)
+        index, size = (rank, world) if mesh is None else (mesh.data_rank, mesh.data_size)
+        batch = ddp.shard_batch(full_train_batch(cfg, "detection", seed=11), index, size).to(dev)
         timings: dict = {}
-        step = ddp.make_train_step(cfg, model, "detection", timings=timings)
+        step = ddp.make_train_step(cfg, model, "detection", timings=timings, mesh=mesh)
         key = make_key(2024, device=dev)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         state, logged = step(state, batch, key)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
+        frames = frame_slice(cfg.num_frames, mesh)
         out = {"losses": {k: float(v) for k, v in logged.items()},
                "mu": {k: v.cpu() for k, v in state.mu.items()},
                "params": {k: v.cpu() for k, v in state.params.items()},
-               "launches": launches, "videos": batch.images.shape[0]}
+               "launches": launches, "videos": batch.images.shape[0],
+               "frames": [frames.start, frames.stop]}
         timings.clear()
         step(state, batch, key)
         out["split_ms"] = {k: timings.get(k, 0.0) for k in EVENTS}
@@ -3053,25 +3067,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ddp_path(backend: str):
-    """Data parallelism at full width: the one-process UniVS-R50 detection
-    step on the train path's B=2 batch, then a world of 2 processes (gloo over
-    cuda:0 twice, or NCCL over cuda:0 and cuda:1), each on its one video
-    from the same masters and key: every rank's logged losses against the
-    one-process step's, the global float32 gradient (Adam's first moment)
-    and the parameters after the step within their tolerances, A/B/C 6 a
-    rank, the step and all-reduce ms of a second step.  The kernels are
-    built by the caller, so the ranks only load them.  Returns (ok,
-    launches summed over the ranks)."""
-    import shutil
-
+def train_world_reference():
+    """The one-process UniVS-R50 detection step on the train path's B=2
+    batch, from the seeded masters and key 2024, that the data-parallel
+    and frame-group worlds are held to, computed once: the config, the
+    label groups, the step's losses, first moment and params, the initial
+    masters and the ms split of a second step."""
     import torch
-    import torch.multiprocessing as mp
 
     from univs_tpu_torch.config import UniVSConfig
     from univs_tpu_torch.models.univs import build_model
-    from univs_tpu_torch.parallel.train_state import (create_train_state, make_train_step,
-                                                      param_groups)
+    from univs_tpu_torch.parallel.train_state import (EVENTS, create_train_state,
+                                                      make_train_step, param_groups)
     from univs_tpu_torch.utils.draws import make_key
 
     cfg = UniVSConfig(dtype="bfloat16")
@@ -3079,23 +3086,51 @@ def run_ddp_path(backend: str):
     model = build_model(cfg, masters, device="cuda")
     state = create_train_state(cfg, model, masters)
     labels, _ = param_groups(model)
-    step = make_train_step(cfg, model, "detection")
+    timings: dict = {}
+    step = make_train_step(cfg, model, "detection", timings=timings)
     batch = full_train_batch(cfg, "detection", seed=11).to("cuda")
-    state, logged = step(state, batch, make_key(2024))
+    key = make_key(2024)
+    state, logged = step(state, batch, key)
     want = {"losses": {k: float(v) for k, v in logged.items()},
             "mu": {k: v.cpu() for k, v in state.mu.items()},
-            "params": {k: v.cpu() for k, v in state.params.items()}}
-    init = {k: v.float() for k, v in masters.items() if k in want["params"]}
+            "params": {k: v.cpu() for k, v in state.params.items()},
+            "init": {k: v.float() for k, v in masters.items() if k in state.params}}
+    timings.clear()
+    step(state, batch, key)
+    want["split_ms"] = {k: timings.get(k, 0.0) for k in EVENTS}
     del model, state, step, batch, masters
     torch.cuda.empty_cache()
+    return cfg, labels, want
 
+
+def run_ddp_path(backend: str, reference, world: int = DDP_WORLD, model_parallel=None):
+    """Data parallelism at full width against ``train_world_reference``'s
+    one-process step: a world of ``world`` processes (gloo over cuda:0,
+    or NCCL with a card a rank), each on its share of the B=2 batch from
+    the same masters and key: every rank's logged losses against the
+    one-process step's, the global float32 gradient (Adam's first moment)
+    and the parameters after the step within their tolerances, every rank
+    the same parameters, A/B/C 6 a rank, the step and all-reduce ms of a
+    second step.  ``model_parallel``: the world as ``make_mesh(
+    model_parallel)``'s (data, model) layout, each frame group encoding
+    its frames of each clip (the 'train frame group' path).  The kernels
+    are built by the caller, so the ranks only load them.  Returns (ok,
+    launches summed over the ranks)."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    cfg, labels, want = reference
+    init = want["init"]
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ddp_check")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     t0 = time.perf_counter()
-    mp.spawn(_ddp_worker, args=(backend, _free_port(), out_dir), nprocs=DDP_WORLD, join=True)
+    mp.spawn(_ddp_worker, args=(backend, _free_port(), out_dir, world, model_parallel),
+             nprocs=world, join=True)
     spawn_s = time.perf_counter() - t0
-    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(DDP_WORLD)]
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(world)]
     shutil.rmtree(out_dir, ignore_errors=True)
 
     lr = cfg.train.lr
@@ -3117,14 +3152,20 @@ def run_ddp_path(backend: str):
           and all(e <= DDP_GRAD_TOL for ge in grad_err for e in ge.values())
           and all(e <= DDP_UPDATE_TOL for ue in update_err for e in ue.values())
           and param_max <= 2 * lr * 1.01 and ranks_equal and counts_ok)
-    note = ("two processes on ONE card over gloo: this checks the data-parallel code path "
-            "and says nothing about scaling" if backend == "gloo" else
-            "NCCL over two cards")
-    emit({"path": f"train ddp {backend}", "note": note, "world": DDP_WORLD,
-          "videos_per_rank": [r["videos"] for r in ranks], "height": TRAIN_HW, "width": TRAIN_HW,
-          "frames": cfg.num_frames, "spawn_s": spawn_s,
+    model = 1 if model_parallel is None else model_parallel
+    path = (f"train ddp {backend}" if model_parallel is None else
+            f"train frame group {backend}" + ("" if world == model else f" data={world // model}"))
+    note = (f"{world} processes on ONE card over gloo: this checks the code path and says "
+            "nothing about scaling" if backend == "gloo" else f"NCCL over {world} cards")
+    emit({"path": path, "note": note, "world": world,
+          "layout": {"data": world // model, "model": model},
+          "videos_per_rank": [r["videos"] for r in ranks],
+          "frames_per_rank": [r["frames"] for r in ranks], "height": TRAIN_HW,
+          "width": TRAIN_HW, "frames": cfg.num_frames, "spawn_s": spawn_s,
           "step_ms": [sum(r["split_ms"].values()) for r in ranks],
           "split_ms": [r["split_ms"] for r in ranks],
+          "one_process_split_ms": want["split_ms"],
+          "one_process_step_ms": sum(want["split_ms"].values()),
           "allreduce_ms": [r["split_ms"]["allreduce_ms"] for r in ranks],
           "max_rel_loss_err": loss_err, "worst_losses": [[k, e] for e, k in loss_errs[:3]],
           "loss_tol": loss_tol,
@@ -3134,7 +3175,7 @@ def run_ddp_path(backend: str):
           "update_rel_err": update_err, "update_tol": DDP_UPDATE_TOL,
           "param_max_abs_err": param_max, "param_tol": 2 * lr, "ranks_identical": ranks_equal,
           "launches_per_rank": [r["launches"] for r in ranks], "launches_ok": counts_ok,
-          "pass": bool(ok)})
+          "card": card_line(), "pass": bool(ok)})
     return bool(ok), launches
 
 
@@ -4848,13 +4889,21 @@ def main(argv) -> int:
     log(f"build: {len(logs)} kernel(s) in {time.perf_counter() - t0:.1f} s")
 
     if argv == ["ddp"]:
-        # data parallelism over NCCL, one process a card, on a machine with
-        # two or more cards (the default run checks the same step on gloo,
-        # two processes on cuda:0)
-        if torch.cuda.device_count() < 2:
-            log(f"ddp needs two cards, {torch.cuda.device_count()} visible")
+        # data parallelism and the frame group over NCCL, one process a
+        # card, on a machine with two or more cards (the default run checks
+        # the same steps on gloo, two processes on cuda:0)
+        cards = torch.cuda.device_count()
+        if cards < 2:
+            log(f"ddp needs two cards, {cards} visible")
             return 1
-        ok, _ = run_ddp_path("nccl")
+        reference = train_world_reference()
+        ok, _ = run_ddp_path("nccl", reference)
+        layouts = [(2, 2)] + ([(4, 2)] if cards >= 4 else [])  # (world, model axis)
+        for world, model in layouts:
+            layout_ok, _ = run_ddp_path("nccl", reference, world, model)
+            log(f"frame group (data={world // model}, model={model}) over NCCL on {world} "
+                f"cards: {'pass' if layout_ok else 'FAILED'}")
+            ok &= layout_ok
         cli_ok, _ = run_cli_ddp("nccl")
         ok &= cli_ok
         print(card, flush=True)
@@ -4964,10 +5013,14 @@ def main(argv) -> int:
     ok &= path_ok
     by_path.update(train_paths)
     for name, run in (("train boxvis", run_boxvis_path),
-                      ("train long_video", run_long_video_path),
-                      ("train ddp gloo", lambda: run_ddp_path("gloo"))):
+                      ("train long_video", run_long_video_path)):
         path_ok, by_path[name] = run()
         ok &= path_ok
+    reference = train_world_reference()
+    for name, model_parallel in (("train ddp gloo", None), ("train frame group gloo", 2)):
+        path_ok, by_path[name] = run_ddp_path("gloo", reference, DDP_WORLD, model_parallel)
+        ok &= path_ok
+    del reference
     path_ok, remat_paths = run_remat_paths()
     ok &= path_ok
     by_path.update(remat_paths)

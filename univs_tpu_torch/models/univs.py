@@ -30,6 +30,7 @@ from univs_tpu_torch.config import UniVSConfig
 from univs_tpu_torch.models.backbones.resnet import build_backbone as _build_backbone
 from univs_tpu_torch.models.decoder import UniVSDecoder, draw_shuffle_perms
 from univs_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
+from univs_tpu_torch.parallel.mesh import Mesh, frame_slice, gather_frames
 from univs_tpu_torch.prompts.visual_prompt import (
     TrainPromptDraw,
     broadcast_prompt_sample,
@@ -109,13 +110,22 @@ class UniVSModel(nn.Module):
         std = torch.tensor(self.cfg.pixel_std, dtype=torch.float32, device=images.device)
         return ((images.to(torch.float32) - mean) / std).to(compute_dtype_of(self.cfg))
 
-    def encode_features(self, images: torch.Tensor):
+    def encode_features(self, images: torch.Tensor, frames: Optional[Mesh] = None):
         """images [B, T, H, W, 3] raw -> (mask_features [B*T, H/4, W/4, Cm],
-        the multi-scale maps, coarse to fine)."""
+        the multi-scale maps, coarse to fine).  With ``frames`` (a
+        ``parallel/mesh.Mesh``) this rank encodes its ``frame_slice`` of
+        the clip in one call, and every output is the whole clip's, gathered
+        over the frame group."""
         b, t, h, w, _ = images.shape
-        feats = self.backbone(self.normalize(images).reshape(b * t, h, w, 3))
+        s = frame_slice(t, frames)
+        n = s.stop - s.start
+        local = images if n == t else images[:, s]
+        feats = self.backbone(self.normalize(local).reshape(b * n, h, w, 3))
         mask_features, _, _, ms = self.pixel_decoder(feats)
-        return mask_features, ms
+        if n == t:
+            return mask_features, ms
+        return (gather_frames(mask_features, frames, b, t),
+                type(ms)(gather_frames(x, frames, b, t) for x in ms))
 
     def forward(self, images: torch.Tensor, frame_indices: torch.Tensor, task: str = "detection",
                 text_prompts: Optional[TextPrompts] = None,
@@ -124,16 +134,19 @@ class UniVSModel(nn.Module):
                 gt_masks: Optional[torch.Tensor] = None, gt_boxes: Optional[torch.Tensor] = None,
                 gt_occur: Optional[torch.Tensor] = None,
                 gt_obj_valid: Optional[torch.Tensor] = None, train: bool = False,
-                shuffle_key=None, prompt_key=None, shard=None) -> Dict:
+                shuffle_key=None, prompt_key=None, shard=None,
+                frames: Optional[Mesh] = None) -> Dict:
         """images [B, T, H, W, 3] raw RGB, frame_indices [B, T] -> the
         decoder's outputs.  Training sot (``gt_masks`` [B, Qp, T, Hm, Wm],
         ``gt_boxes`` [B, Qp, T, 4] normalized, ``gt_occur`` [B, Qp, T],
         ``gt_obj_valid`` [B, Qp]) samples the visual prompts from the
         ground truth with the draws of ``prompt_key`` (with a ``shard``,
         this process's videos' draws of the global batch); training draws
-        the decoder's shuffle permutations from ``shuffle_key``."""
+        the decoder's shuffle permutations from ``shuffle_key``.  ``frames``
+        splits the encode over a frame group (``encode_features``); what
+        follows sees the whole clip on every rank of the group."""
         b, t = images.shape[:2]
-        mask_features, ms = self.encode_features(images)
+        mask_features, ms = self.encode_features(images, frames)
         if train and task == "sot" and visual_prompts is None and gt_masks is not None:
             grid_feats, grid_pos = self.decoder.prompt_feature_grid(ms[-1], frame_indices)
             draws, coin = draw_train_prompts(prompt_key, b, t, gt_masks.shape[1],

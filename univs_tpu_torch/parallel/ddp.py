@@ -31,8 +31,9 @@ Gloo reduces CUDA tensors with ``all_reduce`` and ``broadcast`` only, so
 every collective here is an ``all_reduce``: the same code runs on gloo
 (the CPU, or several processes on one card) and on NCCL.
 
-Not ported: JAX's ``frame_sharding`` over a ``model`` axis (size 1 by
-default; the reference has no counterpart).
+JAX's ``model`` axis (``frame_sharding``: a clip's frames split over a
+group of ranks) is ``parallel/mesh.py``'s: ``make_mesh(model_parallel)``
+and ``make_train_step(..., mesh=)``.
 """
 
 from __future__ import annotations
@@ -251,13 +252,19 @@ def shard_batch(batch, rank: int, world_size: int):
     return type(batch)(**out)
 
 
-def make_train_step(cfg, model, task: str = "detection", group=None, timings=None):
+def make_train_step(cfg, model, task: str = "detection", group=None, timings=None, mesh=None):
     """The data-parallel train step of one task family: each process
     calls ``step(state, its_shard_of_the_batch, key)`` with the same key
     and an identical state; the state advances as the one-process step's
     on the global batch, and the logged losses are the global ones on
-    every rank (``timings`` also gets 'allreduce_ms')."""
+    every rank (``timings`` also gets 'allreduce_ms').  The processes are
+    process group ``group``'s, or ``mesh``'s (``parallel/mesh.make_mesh``),
+    whose data groups shard the batch and whose frame groups split the
+    clip's frames; not both."""
     from univs_tpu_torch.parallel import train_state
+    from univs_tpu_torch.parallel.mesh import data_mesh
 
-    return train_state.make_train_step(cfg, model, task, timings=timings, data_parallel=True,
-                                       group=group)
+    if mesh is not None and group is not None:
+        raise ValueError("give the step a process group or a mesh, not both")
+    return train_state.make_train_step(cfg, model, task, timings=timings,
+                                       mesh=data_mesh(group) if mesh is None else mesh)

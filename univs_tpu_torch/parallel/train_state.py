@@ -30,6 +30,15 @@ BoxVIS (``train.boxvis_enabled``) trains the box-projection loss; with
 working model that takes the EMA masters before each update, runs a
 no-grad forward on the batch and its pseudo masks supervise the
 learnable queries (JAX ``train_state.py:225-246``).
+
+With a ``mesh`` (``parallel/mesh.py``) whose model axis is m > 1, each
+rank of a frame group encodes its frames of the clip and the gathered clip
+goes through the decoder on every rank of the group (JAX's
+``frame_sharding``, ``train_state.py:280-297``).  The batch is sharded
+over the data group, and the gradients over the world: the encoder's
+(``ENCODER``) are each rank's share of its frames, the rest a copy per
+rank of the group, which enters the sum at 1 / m, so the world's sum is
+the global gradient and every rank's masters stay the same.
 """
 
 from __future__ import annotations
@@ -49,10 +58,14 @@ from univs_tpu_torch.losses.criterion import (TrainTargets, UniCriterion,
                                               boxvis_teacher_pseudo_masks)
 from univs_tpu_torch.ops.mask_ops import masks_to_boxes
 from univs_tpu_torch.parallel.ddp import BatchShard
+from univs_tpu_torch.parallel.mesh import Mesh, splits_frames
 from univs_tpu_torch.structures import TextPrompts
 from univs_tpu_torch.utils.weights import flax_leaf_of
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
+# the per-frame modules a frame group splits (by module, not by label:
+# the pixel decoder is in the 'rest' group)
+ENCODER = ("backbone.", "pixel_decoder.")
 EMBED_NAMES = ("query_feat", "query_embed", "level_embed", "cls_temp", "reid_temp",
                "prompt_detection", "prompt_sot", "prompt_grounding")
 
@@ -250,16 +263,23 @@ def _model_inputs(cfg: UniVSConfig, batch: TrainBatch, task: str):
     return kwargs, cls_valid, level_sizes, tokens, targets
 
 
-def _group_grads(state: TrainState, names, named, shard: BatchShard) -> list:
+def _group_grads(state: TrainState, names, named, group=None,
+                 share: Optional[Dict[str, float]] = None) -> list:
     """One label group's working gradients upcast to float32 (none: zero);
-    under data parallelism summed over the processes as one flat buffer,
-    before the clip sees them (JAX's psum)."""
+    with a process ``group`` summed over its processes as one flat buffer,
+    before the clip sees them (JAX's psum).  ``share``: the factor each
+    gradient enters the sum with (a frame group's copies, 1 / m)."""
     grads = [torch.zeros_like(state.params[n]) if named[n].grad is None
              else named[n].grad.to(torch.float32) for n in names]
-    if shard.distributed:
+    if group is not None:
         flat = torch.cat([g.reshape(-1) for g in grads])
-        torch.distributed.all_reduce(flat, group=shard.group)
-        grads = [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        parts = flat.split([g.numel() for g in grads])
+        scaled = [(v, share[n]) for v, n in zip(parts, names) if share and share[n] != 1.0]
+        if scaled:
+            views, factors = zip(*scaled)
+            torch._foreach_mul_(list(views), list(factors))
+        torch.distributed.all_reduce(flat, group=group)
+        grads = [v.view_as(g) for v, g in zip(parts, grads)]
     return grads
 
 
@@ -301,8 +321,7 @@ EVENTS = ("forward_ms", "teacher_ms", "backward_ms", "allreduce_ms", "optimizer_
 
 
 def make_train_step(cfg: UniVSConfig, model: nn.Module, task: str = "detection",
-                    timings: Optional[Dict[str, float]] = None, data_parallel: bool = False,
-                    group=None):
+                    timings: Optional[Dict[str, float]] = None, mesh: Optional[Mesh] = None):
     """The train step of one task family: ``step(state, batch, key) ->
     (state, logged)`` with ``key`` a ``DrawKey``; the state and the
     working model are updated in place.  ``logged`` holds every loss of
@@ -310,9 +329,13 @@ def make_train_step(cfg: UniVSConfig, model: nn.Module, task: str = "detection",
     dict) each step on the card adds the ms of its forward (the criterion
     included), the BoxVIS teacher's forward, the backward, the gradient
     all-reduce and the optimizer (CUDA events) under ``EVENTS``' names.
-    ``data_parallel`` (``parallel/ddp.make_train_step``): ``batch`` is
-    this process's shard of the global batch, in process group ``group``;
-    the step is the one-process step's on the global batch."""
+    A distributed ``mesh`` (``parallel/ddp.make_train_step``): ``batch``
+    is the shard of this rank's data index (``shard_batch(batch,
+    mesh.data_rank, mesh.data_size)``), the same on every rank of its frame
+    group, which splits the clip's frames when T divides by the model axis
+    (``parallel/mesh.make_mesh``; ``data_mesh``, the data axis alone, is
+    the plain data-parallel step); the step is the one-process step's on
+    the global batch."""
     if task not in ("detection", "grounding", "sot"):
         raise ValueError(f"task {task!r}: the trainer takes detection, grounding or sot")
     c = cfg.train
@@ -321,6 +344,8 @@ def make_train_step(cfg: UniVSConfig, model: nn.Module, task: str = "detection",
     labels, decay = param_groups(model)
     scale = {"backbone": c.backbone_lr_multiplier, "rest": 1.0}
     named = trainable(model)
+    world = mesh.group if mesh is not None and mesh.distributed else None
+    copies = 1 if mesh is None else mesh.model_size
     teacher = make_teacher(model) if c.boxvis_enabled and c.boxvis_ema_enabled else None
     teacher_params = None if teacher is None else [dict(teacher.named_parameters())[n]
                                                    for n in named]
@@ -335,9 +360,14 @@ def make_train_step(cfg: UniVSConfig, model: nn.Module, task: str = "detection",
         k = key.fold_in(state.step)
         r_model, r_crit, r_shuffle, r_prompt = k.split(4)
         kwargs, cls_valid, level_sizes, tokens, targets = _model_inputs(cfg, batch, task)
-        B = batch.images.shape[0]
-        shard = (BatchShard.of(B, group, batch.images.device) if data_parallel
-                 else BatchShard.whole(B))
+        B, T = batch.images.shape[:2]
+        shard = (BatchShard.whole(B) if world is None
+                 else BatchShard.of(B, mesh.data_group, batch.images.device))
+        share = None
+        if copies > 1:  # the encoder's gradients are shares when the frames split
+            split = splits_frames(T, mesh)
+            share = {n: 1.0 if split and n.startswith(ENCODER) else 1.0 / copies
+                     for n in named}
         for p in named.values():
             p.grad = None
         if ev:
@@ -349,7 +379,8 @@ def make_train_step(cfg: UniVSConfig, model: nn.Module, task: str = "detection",
             with torch.no_grad():
                 torch._foreach_copy_(teacher_params, [state.ema_params[n] for n in named])
                 out_t = teacher(batch.images, batch.frame_indices, task=task, train=True,
-                                shuffle_key=r_model, prompt_key=r_prompt, shard=shard, **kwargs)
+                                shuffle_key=r_model, prompt_key=r_prompt, shard=shard,
+                                frames=mesh, **kwargs)
                 Ql = cfg.decoder.num_queries
                 pseudo = boxvis_teacher_pseudo_masks(
                     r_crit.fold_in(31337), out_t["pred_logits"][:, :Ql],
@@ -358,7 +389,8 @@ def make_train_step(cfg: UniVSConfig, model: nn.Module, task: str = "detection",
         if ev:
             ev["teacher_ms"].record()
         out = model(batch.images, batch.frame_indices, task=task, train=True,
-                    shuffle_key=r_shuffle, prompt_key=r_prompt, shard=shard, **kwargs)
+                    shuffle_key=r_shuffle, prompt_key=r_prompt, shard=shard, frames=mesh,
+                    **kwargs)
         total, logged = criterion(
             r_crit, out, targets, cls_valid, task=task, class_loss=(task != "sot"),
             sem_loss=(task == "detection"), level_sizes=level_sizes, tokens_per_prompt=tokens,
@@ -373,7 +405,8 @@ def make_train_step(cfg: UniVSConfig, model: nn.Module, task: str = "detection",
             for group_name in ("backbone", "rest"):
                 names = [n for n in named if labels[n] == group_name]
                 if names:
-                    groups[group_name] = (names, _group_grads(state, names, named, shard))
+                    groups[group_name] = (names, _group_grads(state, names, named, world,
+                                                              share))
             if ev:
                 ev["allreduce_ms"].record()
             lr = sched(state.step)  # the schedule's count and Adam's before this update
@@ -396,7 +429,8 @@ def make_train_step(cfg: UniVSConfig, model: nn.Module, task: str = "detection",
                 timings[b] = timings.get(b, 0.0) + ev[a].elapsed_time(ev[b])
         logged = {k: v.detach() for k, v in logged.items()}
         logged["total_loss"] = total.detach()
-        if shard.distributed:  # the global batch's losses on every process
+        if shard.distributed:  # the global batch's losses on every process (one copy
+            # of each video's: the shard is the data group's)
             names = list(logged)
             summed = shard.count(torch.stack([logged[n].to(torch.float32) for n in names]))
             logged = dict(zip(names, summed.unbind()))
