@@ -25,11 +25,22 @@ embeddings are shuffled over frames by a drawn permutation per head call
 ``make_rng("shuffle")`` addresses); grounding logits are divided by the
 width; no l4p fusion; the text prompts' head-averaged lang->vision
 attention weights come back as ``l2v_attn_weights``.
+
+Inference on the card (grad off, not inside another capture): the
+prologue (PE grids, level tokens, prompt queries, the first prompt
+cross-attention) runs eagerly on every call, and the layer stack, from
+the first heads call to the last, replays from a CUDA graph captured
+at the second call of its input key (``_StackGraphs``); the outputs are
+copies the caller owns.  The static part of the self-attention bias is
+built once per key on its device (``self_attn_bias``).  Every other call
+runs the same stack eagerly.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from collections import OrderedDict
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -47,7 +58,12 @@ from univs_tpu_torch.models.transformer_layers import (
 )
 from univs_tpu_torch.ops.position_encoding import SinePositionEncoding3D
 from univs_tpu_torch.structures import TextPrompts, VisualPrompts
-from univs_tpu_torch.utils.profiling import span
+from univs_tpu_torch.utils.profiling import count, span
+
+BIASES = 16  # static self-attention biases kept on their devices
+GRAPHS = 4  # captured layer stacks a decoder keeps
+SEEN = 64  # keys seen once that a decoder remembers
+WARMUP = 2  # eager runs of a layer stack on the capture's stream before its capture
 
 
 def build_self_attn_bias(num_learnable: int, num_prompt: int, t: int, mask_type: str, task: str,
@@ -73,6 +89,93 @@ def build_self_attn_bias(num_learnable: int, num_prompt: int, t: int, mask_type:
         raise ValueError(mask_type)
     bias = np.where(disallow, NEG_INF, 0.0).astype(np.float32)
     return torch.as_tensor(bias, device=device)[None, None]
+
+
+def _remember(cache: OrderedDict, key, value, limit: int) -> None:
+    """Put ``key`` in ``cache`` as its most recent entry, dropping the least
+    recently used beyond ``limit``."""
+    cache[key] = value
+    cache.move_to_end(key)
+    while len(cache) > limit:
+        cache.popitem(last=False)
+
+
+@functools.lru_cache(maxsize=BIASES)
+def _device_bias(num_learnable, num_prompt, t, mask_type, task, device):
+    return build_self_attn_bias(num_learnable, num_prompt, t, mask_type, task, device=device)
+
+
+def self_attn_bias(num_learnable: int, num_prompt: int, t: int, mask_type: str, task: str,
+                   device) -> Optional[torch.Tensor]:
+    """``build_self_attn_bias`` built once per (query counts, T, mask type,
+    task, device), the ``BIASES`` most recent kept, and served from the
+    device's memory: a capture cannot copy from host memory, and an upload
+    waits for the work queued before it.  The result is shared: never
+    write to it."""
+    return _device_bias(num_learnable, num_prompt, t, mask_type, task, torch.device(device))
+
+
+class _StackGraph:
+    """One captured layer stack: its static inputs, the graph and its output
+    buffers.  ``held``: tensors the captured kernels read that are not
+    inputs (the static self-attention bias), kept alive with the graph."""
+
+    def __init__(self, fn, inputs, held):
+        self.inputs = tuple(None if x is None else x.clone() for x in inputs)
+        self.held = held
+        dev = self.inputs[0].device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP):
+                    fn(*self.inputs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                self.outputs = fn(*self.inputs)
+
+    def replay(self, inputs):
+        """Copy ``inputs`` into the static inputs, replay, and return copies
+        of the outputs: the next replay rewrites the graph's buffers."""
+        for static, x in zip(self.inputs, inputs):
+            if static is not None:
+                static.copy_(x)
+        self.graph.replay()
+        return tuple(None if y is None else y.clone() for y in self.outputs)
+
+
+class _StackGraphs:
+    """A decoder's captured layer stacks by key (``UniVSDecoder._graph_key``),
+    the least recently used evicted beyond ``GRAPHS``.  A key's first call
+    runs eagerly, so a shape seen once never pays for a capture; its second
+    captures after ``WARMUP`` eager runs on a side stream, and it and every
+    later call replay.  Counters: ``decoder_graph_captures``,
+    ``decoder_graph_replays`` (one a replayed call).  Copying the module
+    copies none of its graphs."""
+
+    def __init__(self):
+        self.graphs: OrderedDict = OrderedDict()
+        self.seen: OrderedDict = OrderedDict()
+        self.weights = None  # the decoder's parameters, whose addresses a key holds
+
+    def __reduce__(self):
+        return _StackGraphs, ()
+
+    def run(self, key, fn, inputs, held):
+        graph = self.graphs.get(key)
+        if graph is None:
+            if key not in self.seen:
+                _remember(self.seen, key, None, SEEN)
+                return fn(*inputs)
+            del self.seen[key]
+            graph = _StackGraph(fn, inputs, held)
+            count("decoder_graph_captures")
+            _remember(self.graphs, key, graph, GRAPHS)
+        else:
+            self.graphs.move_to_end(key)
+        count("decoder_graph_replays")
+        return graph.replay(inputs)
 
 
 def draw_shuffle_perms(key, num_layers: int, t: int):
@@ -122,6 +225,7 @@ class UniVSDecoder(nn.Module):
         self.lang2vision = CrossAttentionBlock(C, num_heads, False)
         self.pe3d = SinePositionEncoding3D(num_pos_feats=C // 2, mode="arbitrary",
                                            num_max_frames=num_max_frames)
+        self._graphs = _StackGraphs()
 
     # ------------------------------------------------------------------
 
@@ -252,6 +356,98 @@ class UniVSDecoder(nn.Module):
         bias = allowed.reshape(b * t, 1, Q, h * w)
         return logits, masks, embds_raw, bias
 
+    def _graph_key(self, task, sizes, inputs, train):
+        """The key under which this call's layer stack replays from a CUDA
+        graph, or None where it runs eagerly: off the card, in training or
+        with grad on, and inside another capture.  It holds what the captured
+        kernels fix: the task, the level sizes, every input's shape, dtype
+        and device (so B, T, the query and prompt counts, the kv length, the
+        mask features and the class bank), the mask type and the fusion,
+        inference mode, the float32 matmul precision, and where each weight
+        lies (a cast or a move of the weights captures anew)."""
+        if (train or torch.is_grad_enabled() or inputs[0].device.type != "cuda"
+                or torch.cuda.is_current_stream_capturing()):
+            return None
+        if self._graphs.weights is None:
+            self._graphs.weights = list(self.parameters())
+        return (task, tuple(sizes), self.self_attn_mask_type, self.l4p_fusion,
+                torch.is_inference_mode_enabled(), torch.get_float32_matmul_precision(),
+                tuple(None if x is None else (x.shape, x.dtype, x.device) for x in inputs),
+                tuple(p.data_ptr() for p in self._graphs.weights))
+
+    def _layer_stack(self, inputs, self_bias, task, sizes, b, t, train=False,
+                     shuffle_perms=None):
+        """The first heads call, the layers and their heads -> [(logits,
+        masks, embds)] of every heads call.  ``inputs`` as ``forward``
+        gathers them; ``self_bias`` the static part of the self-attention
+        bias (``self_attn_bias``); ``shuffle_perms`` training's frame
+        permutations, one per heads call, or None."""
+        output, query_pos, mask_features, kv, kv_pe, valid, cls_emb, sentences, *levels = inputs
+        srcs, poss = levels[:self.num_feature_levels], levels[self.num_feature_levels:]
+        C = self.hidden_dim
+        Ql = self.num_queries
+        bt = b * t
+        # sentence embedding per expression in CLIP space (pre-projection)
+        exp_sentence = None if sentences is None else sentences[:, :, 0]  # [B, Qe, Dt]
+
+        # pre-downsampled mask features per attention level
+        hm, wm, Cm = mask_features.shape[2:]
+        mf = mask_features.to(torch.float32).reshape(bt, hm, wm, Cm).permute(0, 3, 1, 2)
+        mf_small = [
+            F.interpolate(mf, size=(h, w), mode="bilinear", align_corners=False)
+            .permute(0, 2, 3, 1).reshape(b, t, h, w, Cm).to(mask_features.dtype)
+            for (h, w) in sizes
+        ]
+        calls = iter(range(self.num_layers + 1))
+
+        # activation checkpointing of the heads in training (JAX
+        # ``remat_heads``: nn.remat of _prediction_heads): the full-resolution
+        # mask logits are recomputed in the backward.  The heads draw nothing
+        # (the shuffle permutation comes in drawn), so the recompute is exact
+        remat = self.remat_heads and train and torch.is_grad_enabled()
+
+        def heads(out_tokens, mfs, need):
+            k = next(calls)
+            args = (out_tokens, mask_features, mfs, task, cls_emb, exp_sentence, b, t, need,
+                    train, None if shuffle_perms is None else shuffle_perms[k])
+            with span("decoder.heads"):
+                if remat:
+                    return checkpoint(self._prediction_heads, *args, use_reentrant=False)
+                return self._prediction_heads(*args)
+
+        logits, masks, embds_raw, attn_bias = heads(output, mf_small[0], train)
+        all_preds = [(logits, masks, embds_raw)]
+
+        with span("decoder.bias"):
+            if valid is not None:
+                tok_valid = torch.cat([torch.ones((b, Ql), dtype=torch.bool, device=output.device),
+                                       valid.to(torch.bool)], dim=1)
+                tok_valid = tok_valid.repeat_interleave(t, dim=1)
+                col_bias = torch.where(tok_valid, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
+                n_tok = tok_valid.shape[1]
+                eye = torch.eye(n_tok, dtype=torch.bool, device=output.device)[None, None]
+                base = 0.0 if self_bias is None else self_bias
+                self_bias = torch.where(eye, 0.0, base + col_bias)
+
+        for i in range(self.num_layers):
+            with span("decoder.layer"):
+                if kv is not None and i > 0:
+                    output = self._proca(i, output, query_pos, kv, kv_pe, b, t)
+                li = i % self.num_feature_levels
+                output = getattr(self, f"cross_{i}")(output, srcs[li], query_pos=query_pos,
+                                                     pos=poss[li], bias=attn_bias)
+                Qtot = output.shape[1]
+                o = output.reshape(b, t, Qtot, C).transpose(1, 2).reshape(b, Qtot * t, C)
+                qp_ = query_pos.reshape(b, t, Qtot, C).transpose(1, 2).reshape(b, Qtot * t, C)
+                o = getattr(self, f"self_{i}")(o, pos=qp_, bias=self_bias)
+                output = o.reshape(b, Qtot, t, C).transpose(1, 2).reshape(bt, Qtot, C)
+                output = getattr(self, f"ffn_{i}")(output)
+            final = i == self.num_layers - 1
+            logits, masks, embds_raw, attn_bias = heads(
+                output, mf_small[(i + 1) % self.num_feature_levels], train or final)
+            all_preds.append((logits, masks, embds_raw))
+        return all_preds
+
     def forward(self, x_levels: Sequence[torch.Tensor], mask_features: torch.Tensor,
                 frame_indices: torch.Tensor, task: str = "detection",
                 visual_prompts: Optional[VisualPrompts] = None,
@@ -309,85 +505,54 @@ class UniVSDecoder(nn.Module):
                 prompts = visual_prompts
                 task_emb = self.prompt_sot
             Qp = 0
-            kv = kv_pe = None
+            kv = kv_pe = valid = None
             if prompts is not None:
                 # the memory pool holds float32; the decoder runs in its dtype
                 Qp = prompts.num_prompts
                 kv = prompts.kv.to(dtype)
                 kv_pe = None if prompts.kv_pe is None else prompts.kv_pe.to(dtype)
+                valid = prompts.valid
                 pq = (prompts.queries.to(dtype) + task_emb).transpose(1, 2).reshape(bt, Qp, C)
                 pqp = prompts.query_pos.to(dtype).transpose(1, 2).reshape(bt, Qp, C)
                 output = torch.cat([output, pq], dim=1)
                 query_pos = torch.cat([query_pos, pqp], dim=1)
                 output = self._proca(0, output, query_pos, kv, kv_pe, b, t)
                 query_pos = torch.cat([query_pos[:, :Ql], output[:, Ql:]], dim=1)
-            # sentence embedding per expression in CLIP space (pre-projection)
-            exp_sentence = None
+            # the expressions' embeddings, whose sentence tokens the grounding
+            # heads score against
+            sentences = None
             if task == "grounding" and text_prompts is not None:
-                exp_sentence = text_prompts.embs[:, :, 0]  # [B, Qe, Dt]
-
-            # pre-downsampled mask features per attention level
-            Cm = mask_features.shape[-1]
-            mf = mask_features.to(torch.float32).reshape(bt, hm, wm, Cm).permute(0, 3, 1, 2)
-            mf_small = [
-                F.interpolate(mf, size=(h, w), mode="bilinear", align_corners=False)
-                .permute(0, 2, 3, 1).reshape(b, t, h, w, Cm).to(mask_features.dtype)
-                for (h, w) in sizes
-            ]
+                sentences = text_prompts.embs
+            self_bias = self_attn_bias(Ql, Qp, t, self.self_attn_mask_type, task, output.device)
 
             shuffle = train and self.temporal_query_shuffle and t > 1
             if shuffle and shuffle_perms is None:
                 raise ValueError("training with the temporal query shuffle needs shuffle_perms")
-            calls = iter(range(self.num_layers + 1))
 
-            # activation checkpointing of the heads in training (JAX
-            # ``remat_heads``: nn.remat of _prediction_heads): the full-resolution
-            # mask logits are recomputed in the backward.  The heads draw nothing
-            # (the shuffle permutation comes in drawn), so the recompute is exact
-            remat = self.remat_heads and train and torch.is_grad_enabled()
+        # The layer stack, from the first heads call to the last, reads only
+        # these tensors; on the card, in inference, it replays from a CUDA
+        # graph (``_StackGraphs``).  What stays above runs in Python on every
+        # call: the PE grids upload host data (which a capture cannot copy),
+        # and the first prompt cross-attention is ``self._proca`` as found on
+        # the instance at each call.  A replay runs none of the stack's
+        # Python, only the kernels its capture recorded: forward hooks on the
+        # decoder's submodules, and a ``_proca`` set on the instance, are not
+        # called for the heads and layers 1-8 of a replayed call.  Hooks on
+        # the decoder itself still fire, since the replay happens inside this
+        # forward.
+        inputs = (output, query_pos, mask_features, kv, kv_pe, valid, cls_emb, sentences,
+                  *srcs, *poss)
 
-            def heads(out_tokens, mfs, need):
-                k = next(calls)
-                args = (out_tokens, mask_features, mfs, task, cls_emb, exp_sentence, b, t, need,
-                        train, shuffle_perms[k] if shuffle else None)
-                with span("decoder.heads"):
-                    if remat:
-                        return checkpoint(self._prediction_heads, *args, use_reentrant=False)
-                    return self._prediction_heads(*args)
+        def stack(*xs):
+            return self._layer_stack(xs, self_bias, task, sizes, b, t, train,
+                                     shuffle_perms if shuffle else None)
 
-        logits, masks, embds_raw, attn_bias = heads(output, mf_small[0], train)
-        all_preds = [(logits, masks, embds_raw)]
-
-        with span("decoder.bias"):
-            self_bias = build_self_attn_bias(Ql, Qp, t, self.self_attn_mask_type, task,
-                                             device=output.device)
-            if prompts is not None:
-                tok_valid = torch.cat([torch.ones((b, Ql), dtype=torch.bool, device=output.device),
-                                       prompts.valid.to(torch.bool)], dim=1)
-                tok_valid = tok_valid.repeat_interleave(t, dim=1)
-                col_bias = torch.where(tok_valid, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
-                n_tok = tok_valid.shape[1]
-                eye = torch.eye(n_tok, dtype=torch.bool, device=output.device)[None, None]
-                base = 0.0 if self_bias is None else self_bias
-                self_bias = torch.where(eye, 0.0, base + col_bias)
-
-        for i in range(self.num_layers):
-            with span("decoder.layer"):
-                if prompts is not None and i > 0:
-                    output = self._proca(i, output, query_pos, kv, kv_pe, b, t)
-                li = i % self.num_feature_levels
-                output = getattr(self, f"cross_{i}")(output, srcs[li], query_pos=query_pos,
-                                                     pos=poss[li], bias=attn_bias)
-                Qtot = output.shape[1]
-                o = output.reshape(b, t, Qtot, C).transpose(1, 2).reshape(b, Qtot * t, C)
-                qp_ = query_pos.reshape(b, t, Qtot, C).transpose(1, 2).reshape(b, Qtot * t, C)
-                o = getattr(self, f"self_{i}")(o, pos=qp_, bias=self_bias)
-                output = o.reshape(b, Qtot, t, C).transpose(1, 2).reshape(bt, Qtot, C)
-                output = getattr(self, f"ffn_{i}")(output)
-            final = i == self.num_layers - 1
-            logits, masks, embds_raw, attn_bias = heads(
-                output, mf_small[(i + 1) % self.num_feature_levels], train or final)
-            all_preds.append((logits, masks, embds_raw))
+        key = self._graph_key(task, sizes, inputs, train)
+        if key is None:
+            all_preds = stack(*inputs)
+        else:
+            all_preds = [self._graphs.run(key, lambda *xs: stack(*xs)[-1], inputs,
+                                          held=(self_bias,))]
 
         def to_out(p):
             return {"pred_logits": p[0], "pred_masks": p[1], "pred_embds": p[2]}

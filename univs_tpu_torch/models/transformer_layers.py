@@ -45,7 +45,9 @@ class MultiHeadAttention(nn.Module):
         logits = (q @ k.transpose(-1, -2)).to(torch.float32) / math.sqrt(hd)
         if bias is not None:
             if bias.dtype == torch.bool:
-                logits = logits.masked_fill(~bias, NEG_INF)
+                # in place: the logits are this call's own, and an
+                # out-of-place fill copies them whole ([B, H, Lq, Lk] float32)
+                logits = logits.masked_fill_(~bias, NEG_INF)
             else:
                 logits = logits + bias
         weights = torch.softmax(logits, dim=-1)

@@ -21,9 +21,12 @@ for bit against the per-clip loop.  The card's form, in two parts:
   and the sot decode over the pool's prompt queries), with its PE grids
   and the self-attention bias computed before the capture (the PE cache
   of ``probe_pe_cache``: both are built from host data, which a capture
-  cannot copy); the replay is held bit for bit to the eager decode as
-  shipped, and both are timed with CUDA events (per clip: the eager
-  span is the host's issue, the replay's the device's work).
+  cannot copy); the replay is held bit for bit to the decode as
+  shipped, and both are timed with CUDA events (per clip: the shipped
+  span is the host's issue, the replay's the device's work).  The decode
+  as shipped replays the decoder's own graph of its layer stack from a
+  shape's second call on (``models/decoder.py``), so only its first call
+  (``want``) is wholly eager; inside this probe's capture it runs eagerly.
 
 The aliasing watch point: the pool is updated in place, so an emitted
 window must be a copy taken before ``evict_window`` (``EntityDriver._emit``)
@@ -128,7 +131,7 @@ def main(argv: Optional[Sequence[str]] = None, model=None) -> dict:
            f"incl. shift); host {host_ms:.2f} ms/clip, device busy "
            + (f"{busy_ms:.2f} ms/clip" if busy_ms is not None else "not measured"))
 
-    # the clip decode: eager as shipped against its CUDA graph
+    # the clip decode as shipped against a CUDA graph of the whole of it
     dec = s.model.decoder
     c0 = plan[min(1, len(plan) - 1)]
     feats = clip_feats(c0)
