@@ -99,6 +99,7 @@ def run_cell(spec: Spec, workload: str, seed: int, seconds: float, trace: bool, 
     state = weights.seeded_state(shapes, seed, device, compute)
     ranges = Ranges(modules=trace)
     loop = kind(pcfg, rcfg, state, traffic, seed, seconds, device, ranges)
+    loop.asked = tuple(controls)
     loop.setup()
     loop.arm()
     sync()
@@ -128,7 +129,7 @@ def run_cell(spec: Spec, workload: str, seed: int, seconds: float, trace: bool, 
     window_s = time.perf_counter() - t0
     work = loop.work()
     cuda = torch.device(device).type == "cuda"
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peak = loop.peak_bytes() if cuda else 0
     run = Run(cell, tree, traffic, setup_s, window_s, work, ranges.host, tr, attr)
     run.extra.update(loop.extra())
     run.extra["rest"] = {k: work[k] - before.get(k, 0) for k in work}
@@ -156,7 +157,7 @@ def run_cell(spec: Spec, workload: str, seed: int, seconds: float, trace: bool, 
     result = {"correct": bool(correct), "attempted": attempted,
               "failed": 0 if correct else attempted, "metrics": metrics, "device": dev}
     if tr is not None:
-        dev["busy_s"] = tr.busy_us() * 1e-6
+        dev["busy_s"] = loop.busy_s(tr)
         dev["window_s"] = tr.window_s
         result["breakdown"] = {"device_ops": tr.top_ops(10), "idle_gaps": attr.idle_gaps(10)}
     if ctl:

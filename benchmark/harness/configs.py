@@ -2,7 +2,10 @@
 nested dataclasses in the program (``univs_tpu_torch.config``) and in
 the reference (``benchmark/reference/config.py``), which share field
 names.  A key the dataclass lacks raises, so a file cannot state a size
-that neither side reads."""
+that neither side reads; on the reference's side a backbone key may also
+be one that the backbone's family declares in its ``KEYS``
+(``reference/models/backbones/<family>.py``), which the family's
+``build`` reads."""
 
 from __future__ import annotations
 
@@ -38,6 +41,12 @@ def program_config(model: dict):
 
 
 def reference_config(model: dict):
-    from benchmark.reference.config import UniVSConfig
+    """The reference's config; its backbone built into the family's class
+    (``BackboneConfig`` with the family's ``KEYS`` added)."""
+    from benchmark.reference.config import BackboneConfig, UniVSConfig
+    from benchmark.reference.models.backbones import config_class
 
-    return build(UniVSConfig, model)
+    tree = dict(model)
+    backbone = tree.pop("backbone", {})
+    cls = config_class(backbone.get("name", BackboneConfig.name))
+    return build(UniVSConfig, tree).replace(backbone=build(cls, backbone))

@@ -3,11 +3,14 @@ published peaks.
 
 The counts follow the published architecture, not whatever implements
 it: a later change that removes work from the program does not shrink
-them.  A product of an [m, k] and a [k, n] matrix is 2 m k n operations;
-elementwise work (norms, activations, softmax, resizes) is not counted.
-Swin's window attention is counted on the map padded to whole windows,
-as the published model computes it.  Deformable sampling counts 4
-corner products and sums a sample and channel, as kernel A's bound does.
+them.  A product of an [m, k] and a [k, n] matrix is 2 m k n
+operations; elementwise work (norms, activations, softmax, resizes) is
+not counted.  A backbone is counted by its family's module
+(``reference/models/backbones/<family>.py``, ``flops``), with ``conv``
+and ``ceil_div`` from here; Swin's window attention on the map padded
+to whole windows, as the published model computes it.  Deformable
+sampling counts 4 corner products and sums a sample and channel, as
+kernel A's bound does.
 """
 
 from __future__ import annotations
@@ -19,65 +22,18 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
-RESNET_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
-SWIN = {"swin_tiny": (96, (2, 2, 6, 2)), "swin_small": (96, (2, 2, 18, 2)),
-        "swin_base": (128, (2, 2, 18, 2)), "swin_large": (192, (2, 2, 18, 2))}
 
-
-def _conv(k: int, cin: int, cout: int, h: int, w: int) -> float:
+def conv(k: int, cin: int, cout: int, h: int, w: int) -> float:
     return 2.0 * k * k * cin * cout * h * w
 
 
-def _ceil_div(a: int, b: int) -> int:
+def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def resnet_flops(depth: int, H: int, W: int) -> Tuple[float, Dict[str, int]]:
-    """One frame through a torchvision-style ResNet (stride in the 3x3)
-    -> (operations, {res2..res5: channels})."""
-    h, w = _ceil_div(H, 2), _ceil_div(W, 2)
-    ops = _conv(7, 3, 64, h, w)
-    h, w = _ceil_div(h, 2), _ceil_div(w, 2)  # max pool
-    cin, chans = 64, {}
-    for s, (nb, cout) in enumerate(zip(RESNET_BLOCKS[depth], (256, 512, 1024, 2048))):
-        mid = cout // 4
-        for b in range(nb):
-            stride = 2 if (b == 0 and s > 0) else 1
-            ho, wo = _ceil_div(h, stride), _ceil_div(w, stride)
-            ops += _conv(1, cin, mid, h, w) + _conv(3, mid, mid, ho, wo) + _conv(1, mid, cout, ho, wo)
-            if cin != cout or stride != 1:
-                ops += _conv(1, cin, cout, ho, wo)
-            cin, h, w = cout, ho, wo
-        chans[f"res{s + 2}"] = cout
-    return ops, chans
-
-
-def swin_flops(name: str, window: int, H: int, W: int) -> Tuple[float, Dict[str, int]]:
-    """One frame through Swin (4x4 patches, windows of ``window`` on the
-    map padded to whole windows, MLP ratio 4, patch merging)."""
-    C, depths = SWIN[name]
-    h, w = _ceil_div(H, 4), _ceil_div(W, 4)
-    ops = _conv(4, 3, C, h, w)
-    chans = {}
-    for s, depth in enumerate(depths):
-        n = h * w
-        npad = _ceil_div(h, window) * window * _ceil_div(w, window) * window
-        block = (2.0 * npad * C * 3 * C          # qkv
-                 + 4.0 * npad * window * window * C  # q k^T and attn v over the windows
-                 + 2.0 * npad * C * C            # proj
-                 + 16.0 * n * C * C)             # MLP C -> 4C -> C
-        ops += depth * block
-        chans[f"res{s + 2}"] = C
-        if s < len(depths) - 1:
-            h, w = _ceil_div(h, 2), _ceil_div(w, 2)
-            ops += 2.0 * h * w * 4 * C * 2 * C  # merge 4C -> 2C
-            C *= 2
-    return ops, chans
 
 
 def level_shapes(H: int, W: int) -> Tuple[Tuple[int, int], ...]:
     """The deformable encoder's levels, coarse to fine (1/32, 1/16, 1/8)."""
-    return tuple((_ceil_div(H, s), _ceil_div(W, s)) for s in (32, 16, 8))
+    return tuple((ceil_div(H, s), ceil_div(W, s)) for s in (32, 16, 8))
 
 
 def encoder_layer_ops(N: int, S: int, C: int, M: int, L: int, P: int, F: int) -> Dict[str, float]:
@@ -118,10 +74,12 @@ def kernel_work(name: str, N: int, shapes: Sequence[Tuple[int, int]], C: int, M:
 
 
 def backbone_flops(model: dict, H: int, W: int) -> Tuple[float, Dict[str, int]]:
+    """One frame through the backbone, counted by its family's ``flops``
+    (``reference/models/backbones/<family>.py``)."""
+    from benchmark.reference.models.backbones import family
+
     b = model["backbone"]
-    if b["name"].startswith("resnet"):
-        return resnet_flops(b["resnet_depth"], H, W)
-    return swin_flops(b["name"], b["swin_window_size"], H, W)
+    return family(b["name"]).flops(b, H, W)
 
 
 def pixel_decoder_flops(model: dict, H: int, W: int, chans: Dict[str, int]) -> float:
@@ -135,8 +93,8 @@ def pixel_decoder_flops(model: dict, H: int, W: int, chans: Dict[str, int]) -> f
     S = sum(h * w for h, w in shapes)
     per_layer = 4.0 * S * C * C + sum(encoder_layer_ops(1, S, C, M, len(shapes), P, F).values())
     ops += nl * per_layer
-    h4, w4 = _ceil_div(H, 4), _ceil_div(W, 4)
-    ops += 2.0 * chans["res2"] * C * h4 * w4 + _conv(3, C, C, h4, w4) + 2.0 * C * p["mask_dim"] * h4 * w4
+    h4, w4 = ceil_div(H, 4), ceil_div(W, 4)
+    ops += 2.0 * chans["res2"] * C * h4 * w4 + conv(3, C, C, h4, w4) + 2.0 * C * p["mask_dim"] * h4 * w4
     return ops
 
 
@@ -152,7 +110,7 @@ def decoder_flops(model: dict, H: int, W: int, T: int, K: int, num_prompts: int 
     C, Fd, nl, Cm, Dt = d["hidden_dim"], d["ffn_dim"], d["num_layers"], d["mask_dim"], d["clip_cls_emb_dim"]
     Q = d["num_queries"] + num_prompts
     shapes = level_shapes(H, W)
-    h4, w4 = _ceil_div(H, 4), _ceil_div(W, 4)
+    h4, w4 = ceil_div(H, 4), ceil_div(W, 4)
     ops = 0.0
 
     def proca():

@@ -143,10 +143,12 @@ class StepTap:
 class Loop:
     """The base of every kind: ``chips`` lists the card counts it runs
     on, ``controls`` the sides that ``judge`` can put in the program's
-    place."""
+    place; ``asked`` (set before ``setup``) the controls this run will
+    judge, for a kind that reads one at set-up."""
 
     chips = (1,)
     controls = ("fp8",)
+    asked: tuple = ()
 
     def __init__(self, program_cfg, ref_cfg, state, traffic: dict, seed: int, seconds: float,
                  device, ranges: Ranges):
@@ -169,6 +171,15 @@ class Loop:
 
     def extra(self) -> Dict[str, float]:
         return {}
+
+    def peak_bytes(self) -> int:
+        """The peak device memory of the run (the fullest card's)."""
+        return torch.cuda.max_memory_allocated()
+
+    def busy_s(self, tr) -> float:
+        """Seconds in which an operation ran on the device in the traced
+        part ``tr``, averaged over the cards the run uses."""
+        return tr.busy_us() * 1e-6
 
 
 class Stream(Loop):

@@ -14,8 +14,10 @@ device, sliced and scaled by leaf:
   statistics 0 and 1;
 - the decoder's query features, query and level embeddings and the
   pixel decoder's level embeddings N(0, 1); the prompt-type embeddings
-  N(0, 0.02^2); Swin's relative-position bias tables N(0, 0.02^2); the
-  class and re-id temperatures log(1 / 0.07).
+  N(0, 0.02^2); the class and re-id temperatures log(1 / 0.07);
+- a leaf only one backbone family has: its family's ``leaf_rule``
+  (``reference/models/backbones/<family>.py``; Swin's relative-position
+  bias tables N(0, 0.02^2)).
 
 Every leaf the program holds in its compute dtype is rounded to it here,
 so the program and the reference read the same numbers; the leaves a
@@ -31,8 +33,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from benchmark.reference.models.backbones import family
 from benchmark.reference.models.backbones.resnet import FrozenBatchNorm
-from benchmark.reference.models.backbones.swin import WindowAttention
 from benchmark.reference.models.decoder import UniVSDecoder
 from benchmark.reference.models.pixel_decoder import MSDeformAttnLayer, MSDeformAttnPixelDecoder
 
@@ -48,9 +50,10 @@ def direction_grid(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
     return grid.reshape(-1)
 
 
-def _leaf_rule(mod: nn.Module, leaf: str):
+def _leaf_rule(mod: nn.Module, leaf: str, family_rule=None):
     """(kind, scale) of one leaf: 'normal' (scale x the draw) or 'const'
-    (scale everywhere)."""
+    (scale everywhere); ``family_rule`` (the backbone family's
+    ``leaf_rule``) is asked last."""
     if isinstance(mod, (nn.Linear, nn.Conv2d)):
         if leaf == "weight":
             return "normal", 1.0 / math.sqrt(mod.weight[0].numel())
@@ -66,8 +69,9 @@ def _leaf_rule(mod: nn.Module, leaf: str):
             return "normal", 0.02
     if isinstance(mod, MSDeformAttnPixelDecoder) and leaf == "level_embed":
         return "normal", 1.0
-    if isinstance(mod, WindowAttention) and leaf == "relative_position_bias_table":
-        return "normal", 0.02
+    rule = family_rule(mod, leaf) if family_rule is not None else None
+    if rule is not None:
+        return rule
     raise KeyError(f"no seeded rule for {type(mod).__name__}.{leaf}")
 
 
@@ -76,7 +80,9 @@ def seeded_state(ref_model: nn.Module, seed: int, device, compute_dtype: torch.d
                  ) -> Dict[str, torch.Tensor]:
     """The state_dict of ``ref_model``'s names and shapes, drawn from
     ``seed`` on ``device``; leaves in ``compute_dtype`` unless their module
-    keeps them in float32.  ``ref_model`` may live on the meta device."""
+    keeps them in float32.  ``ref_model`` (a reference ``UniVSModel``) may
+    live on the meta device."""
+    family_rule = getattr(family(ref_model.cfg.backbone.name), "leaf_rule", None)
     persistent = set(ref_model.state_dict())
     leaves = []  # (key, module, leaf, tensor, kept in float32)
     for mod_name, mod in ref_model.named_modules():
@@ -96,7 +102,7 @@ def seeded_state(ref_model: nn.Module, seed: int, device, compute_dtype: torch.d
     for key, mod, leaf, t, keep in leaves:
         draw = flat[at:at + t.numel()].view(t.shape)
         at += t.numel()
-        kind, scale = _leaf_rule(mod, leaf)
+        kind, scale = _leaf_rule(mod, leaf, family_rule)
         if kind == "const":
             v = torch.full(t.shape, scale, device=device)
         else:

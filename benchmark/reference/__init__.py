@@ -5,8 +5,9 @@ model code, inference laws, criterion and draws, taken at the commit that
 added the benchmark, so that a later change to the program cannot move
 the yardstick.  They differ from the port's files only where listed:
 imports point here; the three encoder kernels are replaced by their
-plain laws (``ops/plain.py``); ``models/backbones/resnet.build_backbone``
-builds no PVT; the pixel decoder can recompute its encoder layers in the
+plain laws (``ops/plain.py``); a backbone is built by its family's file
+(``models/backbones/<family>.py``, found by name: ``resnet``, ``swin``;
+no PVT yet); the pixel decoder can recompute its encoder layers in the
 backward (``remat``, set by ``train.py``); ``parallel/ddp.py`` keeps only
 the one-process ``BatchShard``; ``rle.py`` keeps the decode alone.
 ``univs.py`` (the model, the VIS and VSS loops, after the port's drivers),

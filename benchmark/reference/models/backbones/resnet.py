@@ -9,15 +9,15 @@ package; inside, convolutions run NCHW in channels-last memory format
 flax tree (``stem_conv``, ``res2_block0.conv1`` ...) so the weight
 bridge maps them one to one.
 
-Feature strides: res2=4, res3=8, res4=16, res5=32.  ``build_backbone``
-here is the factory of every backbone (ResNet, Swin, PVTv2), as in the
-JAX package, and ``pad_same`` the flax "SAME" padding the other two
-need for their strided convs.
+Feature strides: res2=4, res3=8, res4=16, res5=32.  The ``resnet``
+family of ``models/backbones/__init__.py``: ``build`` and ``flops``;
+``pad_same`` is the flax "SAME" padding other families need for their
+strided convs.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -120,16 +120,34 @@ class ResNet(nn.Module):
         return outs
 
 
-def build_backbone(cfg) -> nn.Module:
-    """Factory from a BackboneConfig: ``resnet*``, ``swin*`` (the variant
-    named and ``cfg.swin_window_size``) and ``pvt*`` (linear SRA, as
-    ``build_pvt``); any other name raises ``ValueError``.  Each backbone
-    names its output channels in ``out_channels``."""
-    name = cfg.name
-    if name.startswith("resnet"):
-        return ResNet(depth=cfg.resnet_depth, out_features=cfg.out_features)
-    if name.startswith("swin"):
-        from benchmark.reference.models.backbones.swin import build_swin
+def build(cfg) -> nn.Module:
+    """The ``resnet*`` family's backbone from a BackboneConfig
+    (``resnet_depth``, ``out_features``)."""
+    return ResNet(depth=cfg.resnet_depth, out_features=cfg.out_features)
 
-        return build_swin(cfg)
-    raise ValueError(f"unknown backbone {name!r}")
+
+def resnet_flops(depth: int, H: int, W: int) -> Tuple[float, Dict[str, int]]:
+    """One frame through a torchvision-style ResNet (stride in the 3x3)
+    -> (operations, {res2..res5: channels})."""
+    from benchmark.harness.flops import ceil_div, conv
+
+    h, w = ceil_div(H, 2), ceil_div(W, 2)
+    ops = conv(7, 3, 64, h, w)
+    h, w = ceil_div(h, 2), ceil_div(w, 2)  # max pool
+    cin, chans = 64, {}
+    for s, (nb, cout) in enumerate(zip(_STAGE_SPECS[depth], (256, 512, 1024, 2048))):
+        mid = cout // 4
+        for b in range(nb):
+            stride = 2 if (b == 0 and s > 0) else 1
+            ho, wo = ceil_div(h, stride), ceil_div(w, stride)
+            ops += conv(1, cin, mid, h, w) + conv(3, mid, mid, ho, wo) + conv(1, mid, cout, ho, wo)
+            if cin != cout or stride != 1:
+                ops += conv(1, cin, cout, ho, wo)
+            cin, h, w = cout, ho, wo
+        chans[f"res{s + 2}"] = cout
+    return ops, chans
+
+
+def flops(tree: dict, H: int, W: int) -> Tuple[float, Dict[str, int]]:
+    """One frame of the configuration's ``backbone`` tree."""
+    return resnet_flops(tree["resnet_depth"], H, W)

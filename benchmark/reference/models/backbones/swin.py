@@ -204,14 +204,51 @@ class SwinTransformer(nn.Module):
         return outs
 
 
-def build_swin(cfg) -> SwinTransformer:
-    """From a BackboneConfig: ``VARIANTS[cfg.name]``,
-    ``cfg.swin_window_size`` and ``cfg.swin_use_checkpoint``
-    (``swin_drop_path_rate`` is read by no JAX module: JAX's Swin has no
-    drop path)."""
+def build(cfg) -> SwinTransformer:
+    """The ``swin*`` family's backbone from a BackboneConfig:
+    ``VARIANTS[cfg.name]``, ``cfg.swin_window_size`` and
+    ``cfg.swin_use_checkpoint`` (``swin_drop_path_rate`` is read by no JAX
+    module: JAX's Swin has no drop path)."""
     if cfg.name not in VARIANTS:
         raise ValueError(f"unknown backbone {cfg.name!r}")
     v = VARIANTS[cfg.name]
     return SwinTransformer(embed_dim=v["embed_dim"], depths=v["depths"], num_heads=v["num_heads"],
                            window=cfg.swin_window_size, out_features=cfg.out_features,
                            use_checkpoint=cfg.swin_use_checkpoint)
+
+
+def leaf_rule(mod: nn.Module, leaf: str):
+    """The relative-position bias tables: N(0, 0.02^2)."""
+    if isinstance(mod, WindowAttention) and leaf == "relative_position_bias_table":
+        return "normal", 0.02
+    return None
+
+
+def swin_flops(name: str, window: int, H: int, W: int) -> Tuple[float, Dict[str, int]]:
+    """One frame through Swin (4x4 patches, windows of ``window`` on the
+    map padded to whole windows, MLP ratio 4, patch merging)."""
+    from benchmark.harness.flops import ceil_div, conv
+
+    C, depths = VARIANTS[name]["embed_dim"], VARIANTS[name]["depths"]
+    h, w = ceil_div(H, 4), ceil_div(W, 4)
+    ops = conv(4, 3, C, h, w)
+    chans = {}
+    for s, depth in enumerate(depths):
+        n = h * w
+        npad = ceil_div(h, window) * window * ceil_div(w, window) * window
+        block = (2.0 * npad * C * 3 * C          # qkv
+                 + 4.0 * npad * window * window * C  # q k^T and attn v over the windows
+                 + 2.0 * npad * C * C            # proj
+                 + 16.0 * n * C * C)             # MLP C -> 4C -> C
+        ops += depth * block
+        chans[f"res{s + 2}"] = C
+        if s < len(depths) - 1:
+            h, w = ceil_div(h, 2), ceil_div(w, 2)
+            ops += 2.0 * h * w * 4 * C * 2 * C  # merge 4C -> 2C
+            C *= 2
+    return ops, chans
+
+
+def flops(tree: dict, H: int, W: int) -> Tuple[float, Dict[str, int]]:
+    """One frame of the configuration's ``backbone`` tree."""
+    return swin_flops(tree["name"], tree["swin_window_size"], H, W)

